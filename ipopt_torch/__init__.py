@@ -3,8 +3,11 @@
 The same primal-dual interior point method with filter line search, the same
 ``Options`` names and defaults and the same status codes, written over an
 explicit batch axis in PyTorch; the batched unpivoted LDL^T of the KKT
-matrices is a hand-written CUDA kernel (``csrc/block_ldlt.cu``).  The entry
-points run on the CUDA device unless the caller passes ``device="cpu"``.
+matrices is a hand-written CUDA kernel (``csrc/block_ldlt.cu``, K1).  Chained
+problems (``ChainedNLP``) run on a block-tridiagonal KKT backend, factored by
+block cyclic reduction whose block inverses are the hand-written kernel
+``csrc/block_ldlt_inv.cu`` (K2).  The entry points run on the CUDA device
+unless the caller passes ``device="cpu"``.
 
 Quick start::
 
@@ -12,10 +15,12 @@ Quick start::
     res = solve(modellib.hs071())                       # on the card
     res = solve(modellib.hs071(), device="cpu")         # on the CPU
     rb = solve_batched([modellib.hs071_family(0.005 * i) for i in range(512)])
+    rc = solve(modellib.luksan_vlcek1(4096, 32))        # chained, on the card
 """
 
 from .types import Iterate, SolverReturn, ApplicationReturnStatus
 from .problem import NLP, CanonicalNLP, canonicalize
+from .chained import ChainedNLP, canonicalize_chained
 from .options import Options, print_options_documentation, parse_options_file
 from .algorithm.solver import SolveResult, UnsupportedOptionError, solve
 from .batch import solve_batched, stack_problems
@@ -28,4 +33,5 @@ __all__ = [
     "Iterate", "SolverReturn", "ApplicationReturnStatus",
     "UnsupportedOptionError", "print_options_documentation",
     "parse_options_file", "solve_batched", "stack_problems", "modellib",
+    "ChainedNLP", "canonicalize_chained",
 ]

@@ -3,7 +3,8 @@
 
 Port of the default path of ``ipopt_tpu/algorithm/init.py``: push x0 and
 s0 = d(x0) inside their bounds, bound multipliers at bound_mult_init_val,
-and least-squares equality multipliers (zeroed above constr_mult_init_max).
+and least-squares equality multipliers (zeroed above constr_mult_init_max;
+zero for a chained problem).
 """
 from __future__ import annotations
 
@@ -74,8 +75,15 @@ def default_initialize(nlp: CanonicalNLP, opts: Options) -> Iterate:
     z_U = fill(nlp.has_xU, torch.full_like(x, val))
     v_L = fill(nlp.has_dL, torch.full_like(s, val))
     v_U = fill(nlp.has_dU, torch.full_like(s, val))
-    _, grad_f, _, _, J_c, J_d = nlp.eval_all(x)
-    y_c, y_d = least_squares_y(nlp, x, s, grad_f, J_c, J_d, z_L, z_U,
-                               v_L, v_U, opts.constr_mult_init_max)
+    if nlp.chain is not None:
+        # chained problems skip the dense least-squares estimate
+        # (init.py:165-170); Ipopt's fallback above constr_mult_init_max is
+        # y = 0 anyway
+        y_c = x.new_zeros((x.shape[0], nlp.me))
+        y_d = x.new_zeros((x.shape[0], nlp.mi))
+    else:
+        _, grad_f, _, _, J_c, J_d = nlp.eval_all(x)
+        y_c, y_d = least_squares_y(nlp, x, s, grad_f, J_c, J_d, z_L, z_U,
+                                   v_L, v_U, opts.constr_mult_init_max)
     return Iterate(x=x, s=s, y_c=y_c, y_d=y_d, z_L=z_L, z_U=z_U,
                    v_L=v_L, v_U=v_U)

@@ -13,7 +13,6 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
-from torch.func import vjp, vmap
 
 from ..types import Iterate, col, tree_where, max_init
 from ..problem import CanonicalNLP
@@ -292,14 +291,8 @@ def compute_alpha_for_y(nlp: CanonicalNLP, opts: Options, it: Iterate,
                            torch.ones_like(base), base)
     # min-dual-infeas / safer-min-dual-infeas: closed-form minimizer of the
     # dual infeasibility along delta_y at the new primal point.
-    lane = nlp.lane()
-
-    def jt(x, ln, yc, yd):
-        _, pull = vjp(lambda xx: nlp.cd1(xx, ln), x)
-        return pull((yc, yd))[0]
-
-    jty = vmap(jt)(trial.x, lane, step.y_c, step.y_d)
-    gl_x = (nlp.eval_grad_f(trial.x) + vmap(jt)(trial.x, lane, it.y_c, it.y_d)
+    jty = nlp.eval_jac_t(trial.x, step.y_c, step.y_d)
+    gl_x = (nlp.eval_grad_f(trial.x) + nlp.eval_jac_t(trial.x, it.y_c, it.y_d)
             - trial.z_L + trial.z_U)
     gl_s = -it.y_d - trial.v_L + trial.v_U
     a = (jty * jty).sum(-1) + (step.y_d * step.y_d).sum(-1)

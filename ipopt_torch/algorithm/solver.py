@@ -1,7 +1,8 @@
 """The interior-point driver: IpoptAlgorithm::Optimize, over a batch.
 
-Port of the dense default path of ``ipopt_tpu/algorithm/solver.py``
-(``src/Algorithm/IpIpoptAlg.cpp:292-417``):
+Port of the default path of ``ipopt_tpu/algorithm/solver.py``
+(``src/Algorithm/IpIpoptAlg.cpp:292-417``), on the dense and the chained
+(block-tridiagonal) KKT backends:
 
     InitializeIterates -> CheckConvergence -> loop {
         UpdateHessian; UpdateBarrierParameter; ComputeSearchDirection;
@@ -10,7 +11,7 @@ Port of the dense default path of ``ipopt_tpu/algorithm/solver.py``
 The ``lax.while_loop`` of the reference becomes a Python loop; each step
 advances every running lane of the batch at once (``solve`` is the case
 B = 1), and a lane that has finished is not stepped again.  The state holds
-only the fields the dense default path reads; options that select features
+only the fields the default path reads; options that select features
 not ported yet raise ``UnsupportedOptionError`` before any iteration.
 """
 from __future__ import annotations
@@ -22,10 +23,12 @@ import torch
 from ..types import (Iterate, SolverReturn, col, max_init, tree_put, tree_take,
                      tree_where)
 from ..problem import NLP, CanonicalNLP, canonicalize
+from ..chained import ChainedNLP, canonicalize_chained
 from ..options import Options
 from .. import kkt
 from ..kkt import Evals, evaluate, kkt_residuals, optimality_error, slacks
 from ..linalg import ldlt as _ldlt_mod
+from ..linalg.block_tridiag import bcr_factorize
 from .step import compute_search_direction, compute_hessian
 from .linesearch import (FilterState, filter_init, line_search, filter_reset,
                          filter_augment, _theta)
@@ -187,7 +190,8 @@ class SolveResult(NamedTuple):
     iterate: Any
     counters: Any
     restoration_count: Any
-    # batched LDL^T calls (each one K1 launch on CUDA) made by this solve
+    # batched factorizations made by this solve: dense LDL^T calls (one K1
+    # launch each on CUDA) and BCR factorizations (one K2 launch per level)
     batched_factorizations: Any = None
 
 
@@ -367,9 +371,8 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
     curr_pd = torch.maximum(dual_inf, primal_inf)
     wd_pd = inf
     if bool(ls_failed.any()):
-        _, gf_w, _, _, Jc_w, Jd_w = nlp.eval_all(wd_trial.x)
-        res_wd = kkt_residuals(nlp, wd_trial,
-                               Evals(wd_f, gf_w, wd_c, wd_d, Jc_w, Jd_w), mu)
+        res_wd = kkt_residuals(nlp, wd_trial, kkt.gradient_evals(
+            nlp, wd_trial.x, wd_f, wd_c, wd_d), mu)
         pd = torch.maximum(
             torch.maximum(kkt.norm_inf(res_wd.grad_lag_x),
                           kkt.norm_inf(res_wd.grad_lag_s)),
@@ -407,7 +410,6 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
     if nlp.struct.me + nlp.struct.mi == 0 or not opts.resto_phase:
         enable_resto = False
     if enable_resto:
-        from .restoration import build_resto_nlp, perform_restoration
         resto_opts = opts.resto_options()
         # entering restoration augments the outer filter with the current
         # point (A-9)
@@ -417,11 +419,15 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
         if bool(need_resto.any()):
             idx = need_resto.nonzero().squeeze(-1)
             sub = nlp.take(idx)
-            rr = perform_restoration(
-                sub, build_resto_nlp(sub, opts), opts, resto_opts,
-                tree_take(it, idx), tree_take(ev, idx), mu[idx],
-                tree_take(fs_entry, idx), ls.theta_curr[idx], ls.phi_curr[idx],
-                ipm_step)
+            args = (opts, resto_opts, tree_take(it, idx), tree_take(ev, idx),
+                    mu[idx], tree_take(fs_entry, idx), ls.theta_curr[idx],
+                    ls.phi_curr[idx], ipm_step)
+            if nlp.chain is not None:
+                from .chained_resto import perform_restoration_chained
+                rr = perform_restoration_chained(sub, *args)
+            else:
+                from .restoration import build_resto_nlp, perform_restoration
+                rr = perform_restoration(sub, build_resto_nlp(sub, opts), *args)
             new_it = tree_put(new_it, idx, rr.it)
             st_sub = status[idx]
             st_sub = torch.where(rr.locally_infeasible,
@@ -645,15 +651,20 @@ def finalize(nlp: CanonicalNLP, opts: Options, st: IPMState) -> SolveResult:
 
 def solve_canonical(nlp: CanonicalNLP, opts: Options,
                     initial_convergence_check: bool = True) -> SolveResult:
-    """Solve every lane of a canonical batch; counts the batched LDL^T calls."""
+    """Solve every lane of a canonical batch; counts the batched
+    factorizations."""
     check_supported(opts)
-    calls0 = _ldlt_mod.ldlt.calls
+
+    def calls():
+        return _ldlt_mod.ldlt.calls + bcr_factorize.calls
+
+    calls0 = calls()
     st = initial_state(nlp, opts)
     if initial_convergence_check:
         st = initial_check(nlp, opts, st)
     st = run_ipm(nlp, opts, st)
     res = finalize(nlp, opts, st)
-    return res._replace(batched_factorizations=_ldlt_mod.ldlt.calls - calls0)
+    return res._replace(batched_factorizations=calls() - calls0)
 
 
 def _unbatch(res: SolveResult) -> SolveResult:
@@ -694,7 +705,8 @@ def solve(problem, options: Optional[Options] = None, device=None,
           intermediate_callback=None, **option_kwargs) -> SolveResult:
     """Solve one NLP (IpoptApplication::OptimizeTNLP equivalent).
 
-    ``problem`` is an ``NLP`` or a canonical problem with one lane.  The
+    ``problem`` is an ``NLP``, a ``ChainedNLP`` (solved on the
+    block-tridiagonal backend) or a canonical problem with one lane.  The
     solve runs on ``device``, by default the CUDA device; pass
     ``device="cpu"`` for the CPU.  Keyword arguments override options by
     their Ipopt names.  ``intermediate_callback(iter_count=, obj_value=,
@@ -710,6 +722,8 @@ def solve(problem, options: Optional[Options] = None, device=None,
         opts = opts.replace(callback_token=register_callback(intermediate_callback))
     if isinstance(problem, NLP):
         cnlp = canonicalize(problem, opts, device=dev)
+    elif isinstance(problem, ChainedNLP):
+        cnlp = canonicalize_chained(problem, opts, device=dev)
     else:
         cnlp = problem.to(dev)
     if cnlp.batch != 1:

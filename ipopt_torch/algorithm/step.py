@@ -1,12 +1,15 @@
 """Search direction: the PDFullSpaceSolver + PDPerturbationHandler equivalent,
-dense backend, over a batch (port of ``ipopt_tpu/algorithm/step.py``).
+over a batch (port of ``ipopt_tpu/algorithm/step.py``), with two KKT
+backends chosen by the problem (``_backend``): the dense augmented system
+(K1), and the block-tridiagonal system of a chained problem
+(``chained_kkt.py``, BCR with K2).
 
 The reference runs each retry loop per instance under ``vmap``; here each
 loop runs over the batch while any lane is still active, and a lane that is
 done keeps its values (``torch.where`` on the active mask), so every lane
 ends with the values and counters the reference gives that instance alone:
 - the inertia-correction retry (``step.py:208-239``): every round factors
-  the KKT of every lane with one K1 launch;
+  the KKT of every lane with one batched factorization;
 - iterative refinement (``step.py:120-157``).
 """
 from __future__ import annotations
@@ -20,7 +23,7 @@ from ..problem import CanonicalNLP
 from ..options import Options
 from ..kkt import (Evals, sigmas, assemble_aug_system, condensed_rhs_parts,
                    split_aug_solution, recover_bound_mult_steps,
-                   grad_barrier_x, grad_barrier_s)
+                   grad_barrier_x, grad_barrier_s, jac_t)
 from ..linalg.ldlt import ldlt, ldlt_solve, LDLTResult
 
 
@@ -32,7 +35,7 @@ class StepResult(NamedTuple):
     failed: Any
     num_trials: Any
     residual_ratio: Any
-    fac: LDLTResult
+    fac: Any   # LDLTResult (dense) or BCRFactor (chained)
     K: Any
 
 
@@ -65,14 +68,15 @@ def _matvec(K, s):
     return torch.matmul(K, s.unsqueeze(-1)).squeeze(-1)
 
 
-def solve_with_refinement(K, fac: LDLTResult, rhs, opts: Options):
+def refine(matvec, solve, rhs, opts: Options):
     """Solve K x = rhs per lane with iterative refinement
-    (IpPDFullSpaceSolver.cpp:235-345); returns (sol, residual ratio)."""
-    sol = ldlt_solve(fac, rhs)
+    (IpPDFullSpaceSolver.cpp:235-345), given the products ``matvec(x)`` = K x
+    and the factorized solve ``solve(r)``; returns (sol, residual ratio)."""
+    sol = solve(rhs)
     rhs_norm = torch.clamp(max_init(rhs.abs(), 0.0), min=1e-30)
 
     def ratio(s):
-        return max_init((rhs - _matvec(K, s)).abs(), 0.0) / rhs_norm
+        return max_init((rhs - matvec(s)).abs(), 0.0) / rhs_norm
 
     B = rhs.shape[0]
     i = torch.zeros((B,), dtype=torch.int64, device=rhs.device)
@@ -83,8 +87,8 @@ def solve_with_refinement(K, fac: LDLTResult, rhs, opts: Options):
             (i < opts.max_refinement_steps) & (rr > opts.residual_ratio_max))
         if not bool(active.any()):
             break
-        r = rhs - _matvec(K, sol)
-        sol2 = sol + ldlt_solve(fac, r)
+        r = rhs - matvec(sol)
+        sol2 = sol + solve(r)
         rr2 = ratio(sol2)
         i2 = i + 1
         if imp:
@@ -98,6 +102,11 @@ def solve_with_refinement(K, fac: LDLTResult, rhs, opts: Options):
         rr = torch.where(active, rr2, rr)
         i = torch.where(active, i2, i)
     return sol, rr
+
+
+def solve_with_refinement(K, fac: LDLTResult, rhs, opts: Options):
+    """``refine`` on the dense augmented matrices K (B, N, N)."""
+    return refine(lambda s: _matvec(K, s), lambda r: ldlt_solve(fac, r), rhs, opts)
 
 
 class FactorResult(NamedTuple):
@@ -171,14 +180,38 @@ def factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
                         num_trials=trials)
 
 
+def _backend(nlp: CanonicalNLP) -> str:
+    """"btd" for a chained problem, else "dense"."""
+    return "dense" if nlp.chain is None else "btd"
+
+
 def compute_hessian(nlp: CanonicalNLP, it: Iterate):
-    """The exact Lagrangian Hessian (B, n, n) at the current iterate."""
+    """The exact Lagrangian Hessian at the current iterate, shaped for the
+    backend: dense (B, n, n), or the stage blocks (Wd, Wo) of a chain."""
+    if _backend(nlp) == "btd":
+        from ..chained import stage_hessians
+        return stage_hessians(nlp, it.x, it.y_c, it.y_d)
     return nlp.eval_lag_hess(it.x, it.y_c, it.y_d)
+
+
+def factorize_any(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
+                  hess, mu, delta_w_last):
+    """Backend dispatch of the inertia-corrected factorization."""
+    if _backend(nlp) == "btd":
+        from .chained_kkt import chained_factorize_kkt
+        from ..chained import stage_jacobians
+        return chained_factorize_kkt(nlp, opts, it, stage_jacobians(nlp, it.x),
+                                     hess, mu, delta_w_last)
+    return factorize_kkt(nlp, opts, it, ev, hess, mu, delta_w_last)
 
 
 def solve_any(nlp: CanonicalNLP, opts: Options, fac, K, parts):
     """Solve the factorized augmented system for the four RHS blocks;
     returns ((dx, ds, dy_c, dy_d), residual_ratio)."""
+    if _backend(nlp) == "btd":
+        from .chained_kkt import pack_rhs, unpack_sol, chained_solve_refined
+        sol, rr = chained_solve_refined(K, fac, pack_rhs(nlp, *parts), opts)
+        return unpack_sol(nlp, sol), rr
     rhs = torch.cat(parts, dim=-1)
     sol, rr = solve_with_refinement(K, fac, rhs, opts)
     return split_aug_solution(sol, nlp.n, nlp.mi, nlp.me), rr
@@ -197,11 +230,11 @@ def compute_search_direction(nlp: CanonicalNLP, opts: Options, it: Iterate,
                              ev: Evals, W, mu, delta_w_last) -> StepResult:
     """Assemble + factorize (with inertia correction) + solve + recover
     duals, for every lane."""
-    fr = factorize_kkt(nlp, opts, it, ev, W, mu, delta_w_last)
+    fr = factorize_any(nlp, opts, it, ev, W, mu, delta_w_last)
     parts = condensed_rhs_parts(nlp, it, ev, mu, opts.kappa_d)
     xsplit, rr = solve_any(nlp, opts, fr.fac, fr.K, parts)
     failed = fr.failed
-    if opts.neg_curv_test_tol > 0:
+    if opts.neg_curv_test_tol > 0 and _backend(nlp) == "dense":
         # Inertia-free curvature test (IpPDFullSpaceSolver.cpp:592-637).
         dx = xsplit[0]
         dxdx = (dx * dx).sum(-1)
@@ -222,7 +255,7 @@ def soc_direction(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
     """Second-order correction direction with the saved factorization
     (IpFilterLSAcceptor.cpp:531, soc_method 0)."""
     r_x = (grad_barrier_x(nlp, it, ev.grad_f, mu, opts.kappa_d)
-           + ev.jc_t(it.y_c) + ev.jd_t(it.y_d))
+           + jac_t(nlp, ev, it.y_c, it.y_d))
     r_s = grad_barrier_s(nlp, it, mu, opts.kappa_d) - it.y_d
     xsplit, _ = solve_any(nlp, opts, fac, K, (-r_x, -r_s, -c_soc, -dms_soc))
     dx, ds, dy_c, dy_d = xsplit

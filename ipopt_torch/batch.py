@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from .problem import CanonicalNLP, ARRAY_FIELDS, canonicalize
+from .chained import ChainedNLP, canonicalize_chained
 from .options import Options
 from .algorithm.solver import (SolveResult, guarded_step, prepare_options,
                                resolve_device, solve_canonical)
@@ -25,18 +26,30 @@ def stack_problems(problems, options: Optional[Options] = None,
                    device=None) -> CanonicalNLP:
     """Stack structurally identical problems into one batched CanonicalNLP.
 
-    Each problem is canonicalized on the host (CPU), then the batch is moved
-    to ``device`` in one transfer per array.  The callables must be the same
-    computation for every instance (per-instance data travels in the bounds,
-    ``c_rhs``, ``x0`` and ``params``); the first instance's are kept."""
+    Each problem (an ``NLP``, a ``ChainedNLP`` or a canonical problem) is
+    canonicalized on the host (CPU), then the batch is moved to ``device`` in
+    one transfer per array.  The callables must be the same computation for
+    every instance (per-instance data travels in the bounds, ``c_rhs``,
+    ``x0`` and ``params``); the first instance's are kept.  Chained problems
+    must share one ``ChainInfo`` (the MPC-fleet pattern)."""
     opts = options or Options()
-    cs = [p if isinstance(p, CanonicalNLP) else canonicalize(p, opts)
-          for p in problems]
-    s0 = cs[0].struct
+
+    def canon(p):
+        if isinstance(p, CanonicalNLP):  # a NamedTuple: test it first
+            return p
+        if isinstance(p, ChainedNLP):
+            return canonicalize_chained(p, opts)
+        return canonicalize(p, opts)
+
+    cs = [canon(p) for p in problems]
+    s0, ch0 = cs[0].struct, cs[0].chain
     for c in cs[1:]:
         if c.struct != s0:
             raise ValueError("batched problems must share structure "
                              "(same n/me/mi and index sets)")
+        if c.chain != ch0:
+            raise ValueError("batched chained problems must share one "
+                             "ChainInfo (sizes, row classes, stage callables)")
     first = cs[0]
 
     def cat(name):

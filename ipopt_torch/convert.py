@@ -11,9 +11,10 @@ from typing import Any, Callable, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from .chained import ChainInfo, flat_callables
 from .options import Options
 from .problem import ARRAY_FIELDS, CanonicalNLP, CanonicalStructure
-from .types import Iterate, tree_map
+from .types import Iterate
 
 
 def options_from_dict(d: Mapping[str, Any]) -> Options:
@@ -33,6 +34,14 @@ def _tensor(v, device, dtype, batched):
     return t if batched else t[None]
 
 
+def _tensor_tree(v, device, dtype, batched):
+    if isinstance(v, dict):
+        return {k: _tensor_tree(t, device, dtype, batched) for k, t in v.items()}
+    if isinstance(v, (tuple, list)):
+        return type(v)(_tensor_tree(t, device, dtype, batched) for t in v)
+    return _tensor(v, device, dtype, batched)
+
+
 def canonical_from_arrays(struct_fields: Mapping[str, Any],
                           arrays: Mapping[str, Any], f: Callable,
                           g: Optional[Callable], device="cpu",
@@ -49,12 +58,27 @@ def canonical_from_arrays(struct_fields: Mapping[str, Any],
         v = arrays.get(name, ())
         if name == "params" and (v is None or v == ()):
             vals[name] = ()
-        elif name == "params":
-            vals[name] = tree_map(lambda t: _tensor(t, device, dtype, batched),
-                                  tree_map(torch.as_tensor, v))
         else:
-            vals[name] = _tensor(v, device, dtype, batched)
+            vals[name] = _tensor_tree(v, device, dtype, batched)
     return CanonicalNLP(struct=struct, f=f, g=g, **vals)
+
+
+def chained_from_arrays(struct_fields: Mapping[str, Any],
+                        arrays: Mapping[str, Any],
+                        chain_fields: Mapping[str, Any], f_stage: Callable,
+                        g_stage: Callable, f_last: Optional[Callable] = None,
+                        device="cpu", dtype=torch.float64) -> CanonicalNLP:
+    """A port chained ``CanonicalNLP`` from a reference one: its structure
+    and arrays as for ``canonical_from_arrays`` (``params`` is
+    ``{"theta": ...}``), the ``ChainInfo`` fields ``K, v, mk, eq_mask``, and
+    the port's torch stage callables."""
+    info = ChainInfo(K=int(chain_fields["K"]), v=int(chain_fields["v"]),
+                     mk=int(chain_fields["mk"]), f_stage=f_stage,
+                     g_stage=g_stage, f_last=f_last,
+                     eq_mask=np.asarray(chain_fields["eq_mask"], dtype=bool))
+    f, g = flat_callables(info.K, info.v, f_stage, g_stage, f_last)
+    return canonical_from_arrays(struct_fields, arrays, f, g, device=device,
+                                 dtype=dtype)._replace(chain=info)
 
 
 def iterate_from_arrays(blocks: Sequence[Any], device="cpu",

@@ -28,26 +28,43 @@ def _mtv(J, y):
 
 
 class Evals(NamedTuple):
-    """Cached NLP evaluations at a point (dense backend: the Jacobians are
-    materialized; ``jc_t``/``jd_t`` are the transpose products)."""
+    """Cached NLP evaluations at a point.  The dense backend materializes
+    the Jacobians J_c (B, me, n) and J_d (B, mi, n); a chained problem never
+    does, and keeps the evaluation point ``x`` instead, from which
+    ``jac_t`` takes the transpose products by a vector-Jacobian product
+    (``ipopt_tpu/kkt.py:53-73``)."""
 
     f: Any
     grad_f: Any
     c: Any
     d: Any
-    J_c: Any
-    J_d: Any
-
-    def jc_t(self, y):
-        return _mtv(self.J_c, y)
-
-    def jd_t(self, y):
-        return _mtv(self.J_d, y)
+    J_c: Any = None
+    J_d: Any = None
+    x: Any = None
 
 
 def evaluate(nlp: CanonicalNLP, x) -> Evals:
+    if nlp.chain is not None:
+        c, d = nlp.eval_cd(x)
+        return gradient_evals(nlp, x, nlp.eval_f(x), c, d)
     f, grad_f, c, d, J_c, J_d = nlp.eval_all(x)
     return Evals(f=f, grad_f=grad_f, c=c, d=d, J_c=J_c, J_d=J_d)
+
+
+def gradient_evals(nlp: CanonicalNLP, x, f, c, d) -> Evals:
+    """``Evals`` at x from known f, c and d: adds the gradient and, on the
+    dense backend, the Jacobians."""
+    if nlp.chain is not None:
+        return Evals(f=f, grad_f=nlp.eval_grad_f(x), c=c, d=d, x=x)
+    _, grad_f, _, _, J_c, J_d = nlp.eval_all(x)
+    return Evals(f=f, grad_f=grad_f, c=c, d=d, J_c=J_c, J_d=J_d)
+
+
+def jac_t(nlp: CanonicalNLP, ev: Evals, y_c, y_d):
+    """J_c^T y_c + J_d^T y_d per lane at the point of ``ev``."""
+    if nlp.chain is not None:
+        return nlp.eval_jac_t(ev.x, y_c, y_d)
+    return _mtv(ev.J_c, y_c) + _mtv(ev.J_d, y_d)
 
 
 # ---------------------------------------------------------------------------
@@ -118,8 +135,7 @@ def kkt_residuals(nlp: CanonicalNLP, it: Iterate, ev: Evals, mu) -> KKTResiduals
     """Raw 8-block KKT residuals (IpoptCalculatedQuantities curr_*_resid)."""
     sl_xL, sl_xU, sl_sL, sl_sU = slacks(nlp, it)
     m = col(mu)
-    grad_lag_x = (ev.grad_f + ev.jc_t(it.y_c) + ev.jd_t(it.y_d)
-                  - it.z_L + it.z_U)
+    grad_lag_x = ev.grad_f + jac_t(nlp, ev, it.y_c, it.y_d) - it.z_L + it.z_U
     grad_lag_s = -it.y_d - it.v_L + it.v_U
     return KKTResiduals(
         grad_lag_x=grad_lag_x,
@@ -227,7 +243,7 @@ def condensed_rhs_parts(nlp: CanonicalNLP, it: Iterate, ev: Evals, mu,
     """The four (negated) RHS blocks of the augmented system:
     (-r_x, -r_s, -c, -(d - s))."""
     r_x = (grad_barrier_x(nlp, it, ev.grad_f, mu, kappa_d)
-           + ev.jc_t(it.y_c) + ev.jd_t(it.y_d))
+           + jac_t(nlp, ev, it.y_c, it.y_d))
     r_s = grad_barrier_s(nlp, it, mu, kappa_d) - it.y_d
     return -r_x, -r_s, -ev.c, -(ev.d - it.s)
 

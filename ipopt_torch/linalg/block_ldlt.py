@@ -24,33 +24,19 @@ in ``csrc/block_ldlt.cu``.  No PyTorch call computes an unpivoted LDL^T
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_PKG = os.path.dirname(_HERE)
-SOURCES = (os.path.join(_PKG, "csrc", "block_ldlt.cu"),)
-BUILD_ROOT = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# Shared memory a CTA can use on Hopper (bytes); the large-b variant keeps
-# b*b + b elements there.
-_SMEM_BYTES = 232448
+from . import cuda_lib
 
-_lib = None
-_lib_lock = threading.Lock()
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def max_block(dtype) -> int:
     """Largest b the kernel takes for ``dtype``: (b*b + b) elements must fit
     in a CTA's shared memory."""
-    size = torch.finfo(dtype).bits // 8
-    return int(((1 + 4 * _SMEM_BYTES / size) ** 0.5 - 1) / 2)
+    return cuda_lib.max_block(torch.finfo(dtype).bits // 8, 1)
 
 
 _MAX_B = {dt: max_block(dt) for dt in (torch.float32, torch.float64)}
@@ -80,58 +66,9 @@ def block_ldlt_plain(A: torch.Tensor):
     return L, d
 
 
-def _nvcc() -> str:
-    for env in ("CUDA_HOME", "CUDA_PATH"):
-        root = os.environ.get(env)
-        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
-            return os.path.join(root, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    if os.path.exists("/usr/local/cuda/bin/nvcc"):
-        return "/usr/local/cuda/bin/nvcc"
-    raise RuntimeError("nvcc not found: the block_ldlt CUDA kernel cannot be "
-                       "built (set CUDA_HOME)")
-
-
-def build() -> str:
-    """Compile ``csrc/block_ldlt.cu`` into ``_build/<hash>/libblock_ldlt.so``
-    unless a build of the same sources exists; returns the library path.
-    The compiler's register/shared-memory report is kept in ``build.log``."""
-    h = hashlib.sha256()
-    for path in SOURCES:
-        with open(path, "rb") as fh:
-            h.update(fh.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    out_dir = os.path.join(BUILD_ROOT, "block_ldlt-" + h.hexdigest()[:16])
-    lib_path = os.path.join(out_dir, "libblock_ldlt.so")
-    if os.path.exists(lib_path):
-        return lib_path
-    os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    with open(os.path.join(out_dir, "build.log"), "w") as fh:
-        fh.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib_path)
-    return lib_path
-
-
 def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            for name in ("block_ldlt_f32", "block_ldlt_f64"):
-                fn = getattr(lib, name)
-                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+    return cuda_lib.load("block_ldlt", {"block_ldlt_f32": _ARGTYPES,
+                                        "block_ldlt_f64": _ARGTYPES})
 
 
 def block_ldlt(A: torch.Tensor):

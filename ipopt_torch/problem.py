@@ -24,7 +24,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.func import grad, grad_and_value, hessian, jacfwd, vmap
+from torch.func import grad, grad_and_value, hessian, jacfwd, vjp, vmap
 
 from .options import Options
 from .types import tree_map, tree_take
@@ -113,7 +113,9 @@ class CanonicalNLP(NamedTuple):
     signature ``(x_full, params)``.  Array shapes: x_L/x_U/x0 (B, n),
     d_L/d_U (B, mi), c_rhs (B, me), x_fixed (B, n_full), obj_scale (B,),
     c_scale (B, me), d_scale (B, mi); ``params`` is a tree of (B, ...)
-    tensors or ``()``.
+    tensors or ``()``.  ``chain`` is the static stage structure of a chained
+    problem (``ipopt_torch.chained.ChainInfo``), shared by every lane, or
+    None; the KKT backend and the structured evaluations dispatch on it.
     """
 
     struct: CanonicalStructure
@@ -136,6 +138,7 @@ class CanonicalNLP(NamedTuple):
     obj_scale: Any
     c_scale: Any
     d_scale: Any
+    chain: Any = None
 
     # -- convenience -------------------------------------------------------
     @property
@@ -245,6 +248,14 @@ class CanonicalNLP(NamedTuple):
             return z, z
         J_c, J_d = vmap(jacfwd(self.cd1))(x, self.lane())
         return J_c.reshape(B, self.struct.me, n), J_d.reshape(B, self.struct.mi, n)
+
+    def eval_jac_t(self, x, y_c, y_d):
+        """J_c^T y_c + J_d^T y_d per lane (B, n), by one vector-Jacobian
+        product of (c, d) without forming the Jacobians."""
+        def one(xx, ln, yc, yd):
+            _, pull = vjp(lambda z: self.cd1(z, ln), xx)
+            return pull((yc, yd))[0]
+        return vmap(one)(x, self.lane(), y_c, y_d)
 
     def eval_lag_hess(self, x, y_c, y_d, obj_factor=1.0):
         """W = obj_factor ∇²f + Σ y_c_i ∇²c_i + Σ y_d_j ∇²d_j (TNLP::eval_h,
