@@ -6,8 +6,9 @@ Phases, in order (any failure exits non-zero before the result line):
    per source, all at once);
 3. each kernel against its plain PyTorch version on the card, at the shapes
    its path gives it: K1 at (512, 7, 7) and other block sizes, K2 at every
-   BCR level of the chained path, (64|32|...|1, 156, 156) float64, and at
-   other block sizes and in float32;
+   BCR level of the chained path, (64|32|...|1, 156, 156) float64, at
+   b = 1, 8, 16, 32 (one scalar sweep, exactly equal), 33, 48, 280 and 408,
+   and in float32, on seeded quasi-definite blocks;
 4. the HS071 path: ``solve_batched`` on the 512-instance HS071 family in
    float64, with every kernel's launch count set to 0 just before and read
    just after;
@@ -16,10 +17,16 @@ Phases, in order (any failure exits non-zero before the result line):
    blocks of 156, block cyclic reduction), cold then warm, the launch counts
    set to 0 before the warm solve and read after it, held against the
    reference's float64 values; and ``luksan_vlcek1(256, 32)`` on the card
-   against the same solve on the CPU;
-7. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error,
-   time, the plain version's time and the least time the card could take;
-8. the last line: ``{"ok": true, "device": {...}}``.
+   against the same solve on the CPU; then K2 on every input one more warm
+   solve gives it, against its plain version, and its time per BCR level on
+   those inputs (level 1's is the kernel's ``ms`` below);
+7. the chained restoration: ``hard_chain`` widened to 200 variables per
+   group (KKT blocks 202 wide, restoration blocks 204), with the launch
+   counts set to 0 before and read after, against the same solve on the CPU;
+8. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error,
+   time, the plain version's time and the least time the card could take,
+   and K2's launch plan at the first BCR level;
+9. the last line: ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the ``ipopt_torch`` package next to it; without
 either it fails.  It imports nothing of JAX.
@@ -34,11 +41,9 @@ import time
 import numpy as np
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the peak rate of each
-# type (float64 on the tensor cores; float32 outside them), and the float64
-# rate outside the tensor cores, which a scalar sweep is held to.
+# type (float64 on the tensor cores; float32 outside them).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float64": 67e12, "float32": 67e12}
-FP64_VECTOR_OPS_PER_S = 34e12
 FAMILY_B = 512
 F_STAR = 17.0140171451792
 # The chained path: LuksanVlcek1 at the shape of bench.py:302-314.  Reference
@@ -156,33 +161,76 @@ def gj_flops(nb, b):
     return 2 * nb * b ** 3
 
 
-def gj_sweep_ops(nb, b):
-    """Scalar operations of the unfused Gauss-Jordan sweep that K2 runs: per
-    step, mul/div/sub off row and column k, neg/div on row k, div on column
-    k, and 1/p."""
-    return nb * b * (3 * (b - 1) ** 2 + 3 * (b - 1) + 1)
+def quasi_definite_blocks(rng, nb, b, dtype, tiny_block=True):
+    """Seeded KKT-shaped quasi-definite blocks: a positive definite (x, x)
+    block (random symmetric, shifted past the semicircle's edge sqrt(2n) by
+    one), constraint rows and a -1e-3 regularization; block 0 optionally has
+    an exactly zero pivot.  The class the reference tests its panel sweep on
+    (tests/test_block_tridiag.py:153-160): on merely indefinite blocks the
+    unpivoted panel sweep amplifies rounding, and two summation orders
+    differ far above the tolerances below."""
+    import torch
+    n = max(1, (2 * b) // 3)
+    m = b - n
+    A = np.zeros((nb, b, b))
+    W = rng.standard_normal((nb, n, n))
+    A[:, :n, :n] = 0.5 * (W + W.transpose(0, 2, 1)) + (np.sqrt(2 * n) + 1) * np.eye(n)
+    if m:
+        J = rng.standard_normal((nb, m, n))
+        A[:, n:, :n] = J
+        A[:, :n, n:] = J.transpose(0, 2, 1)
+        A[:, n:, n:] = -1e-3 * np.eye(m)
+    if tiny_block and b > 1:
+        A[0, b // 2, :] = 0.0
+        A[0, :, b // 2] = 0.0
+    return torch.as_tensor(A, dtype=dtype)
+
+
+def k2_tolerance(b, dtype):
+    """(tolerance on |dAinv| / max(1, max|Ainv|), tolerance on |dd| / |d|,
+    reason) of K2 against its plain version on the card."""
+    import torch
+    from ipopt_torch.linalg.block_ldlt_inv import PANEL
+    if b <= PANEL:
+        return 0.0, 0.0, "tol 0: one scalar sweep, the same IEEE operations in order"
+    reason = ("the panel products run as fused multiply-adds in another summation "
+              "order than torch.matmul")
+    if dtype == torch.float64:
+        return 1e-11, 1e-10, f"tol 1e-11 on Ainv, 1e-10 on d: {reason} (FP64 tensor cores)"
+    return 1e-4, 1e-4, f"tol 1e-4: {reason} (IEEE FFMA on the CUDA cores), in float32"
 
 
 def check_k2(dev):
-    """K2 against block_ldlt_inv_plain on the card; returns a dict of the
-    error at the main-path shapes and the timings."""
+    """K2 against block_ldlt_inv_plain on the card, at every BCR level of the
+    chained path and other widths; returns a dict of the error at the
+    main-path shapes, the timings and level 1's plan."""
     import torch
     from ipopt_torch.linalg import block_ldlt_inv as k2
     from ipopt_torch.linalg.ldlt import _pivot_tols
     rng = np.random.default_rng(1)
     b_main = 156
-    main = [(ne, b_main, torch.float64) for ne in (64, 32, 16, 8, 4, 2, 1)]
-    cases = main + [(16, b, torch.float64) for b in (1, 8, 16, 32, 33)]
-    cases += [(64, b_main, torch.float32)]
+    main = [(ne, b_main, torch.float64, quasi_definite_blocks)
+            for ne in (64, 32, 16, 8, 4, 2, 1)]
+    cases = [(16, b, torch.float64, kkt_like_blocks) for b in (1, 8, 16, 32)]
+    cases += [(16, b, torch.float64, quasi_definite_blocks) for b in (33, 48)] + main
+    cases += [(4, 280, torch.float64, quasi_definite_blocks),
+              (2, 408, torch.float64, quasi_definite_blocks),
+              (64, b_main, torch.float32, quasi_definite_blocks)]
     main_err = 0.0
-    for nb, b, dtype in cases:
-        A = kkt_like_blocks(rng, nb, b, dtype).to(dev)
+    for nb, b, dtype, make in cases:
+        A = make(rng, nb, b, dtype).to(dev)
         d_k, inv_k = k2.block_ldlt_inv(A)
         torch.cuda.synchronize()
         d_p, inv_p = k2.block_ldlt_inv_plain(A)
         torch.cuda.synchronize()
+        tol_inv, tol_d, why = k2_tolerance(b, dtype)
         err_inv = float((inv_k - inv_p).abs().max())
         err_d = float((d_k - d_p).abs().max())
+        # block 0's guarded pivot puts 1/tiny into its inverse: scale by the rest
+        scale = max(1.0, float(inv_p[1:].abs().max())) if nb > 1 else 1.0
+        rel_inv = err_inv / scale
+        rel_d = float(((d_k - d_p).abs() / d_p.abs()).nan_to_num(0.0, 0.0, 0.0).max())
+        d_ok = bool(((d_k - d_p).abs() <= tol_d * d_p.abs()).all())
         live = d_p.abs() > _pivot_tols(d_p.abs().amax(-1), dtype, 0.0)[:, None]
         signs_ok = bool(((torch.sign(d_k) == torch.sign(d_p)) | ~live).all())
         nonsingular = live.all(-1)
@@ -190,47 +238,184 @@ def check_k2(dev):
         resid = float((A64 @ inv64 - torch.eye(b, dtype=torch.float64, device=dev))
                       .abs().max()) if bool(nonsingular.any()) else 0.0
         finite = bool(torch.isfinite(inv_k).all() and torch.isfinite(d_k).all())
-        ok = err_inv == 0.0 and err_d == 0.0 and signs_ok and finite
-        log(f"K2 check nb={nb} b={b} {str(dtype)[6:]}: max_abs_err Ainv={err_inv:.3e} "
-            f"d={err_d:.3e} (tol 0: the same IEEE operations) signs_equal={signs_ok} "
-            f"tiny_pivots={int((~live).sum())} max|A Ainv - I| on "
-            f"{int(nonsingular.sum())} nonsingular blocks={resid:.3e} "
-            f"-> {'ok' if ok else 'FAIL'}")
+        ok = rel_inv <= tol_inv and d_ok and signs_ok and finite
+        pl = k2.plan(nb, b, dtype)
+        ms = time_cuda(lambda: k2.block_ldlt_inv(A), reps=20, warmup=3)
+        log(f"K2 check nb={nb} b={b} {str(dtype)[6:]} ({make.__name__}): plan cs={pl.cs} "
+            f"strip rows={list(pl.rows)} shared={pl.smem} B; max_abs_err "
+            f"Ainv={err_inv:.3e} (rel {rel_inv:.3e}) d={err_d:.3e} (rel {rel_d:.3e}) "
+            f"({why}) signs_equal={signs_ok} tiny_pivots={int((~live).sum())} "
+            f"max|A Ainv - I| on {int(nonsingular.sum())} nonsingular blocks={resid:.3e}; "
+            f"{ms:.4f} ms per launch -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"K2 disagrees with its plain version at "
-                             f"nb={nb} b={b} {dtype}")
-        if (nb, b, dtype) in main:
+                             f"nb={nb} b={b} {dtype} ({make.__name__})")
+        if (nb, b, dtype, make) in main:
             main_err = max(main_err, err_inv, err_d)
-    # times on nonsingular blocks (torch.linalg.inv refuses a singular one)
-    A = kkt_like_blocks(rng, 64, b_main, torch.float64, tiny_block=False).to(dev)
-    level_ms = [time_cuda(lambda Ab=A[:ne].contiguous(): k2.block_ldlt_inv(Ab),
-                          reps=20, warmup=3)
-                for ne in (64, 32, 16, 8, 4, 2, 1, 1)]
-    ms = level_ms[0]
-    plain_ms = time_cuda(lambda: k2.block_ldlt_inv_plain(A), reps=5, warmup=1)
-    inv_ms = time_cuda(lambda: torch.linalg.inv(A), reps=50)
-    nbytes = 8 * (2 * 64 * b_main * b_main + 64 * b_main)  # A read, Ainv and d written
-    ops = gj_flops(64, b_main)
+    # level 1's shape on seeded blocks without a guarded pivot, for comparison
+    # with the solve's own blocks (check_k2_on_path)
+    A = quasi_definite_blocks(rng, 64, b_main, torch.float64, tiny_block=False).to(dev)
+    seeded_ms = time_cuda(lambda: k2.block_ldlt_inv(A), reps=100)
+    log(f"K2 timing (64, 156, 156) float64 on seeded quasi-definite blocks: "
+        f"{seeded_ms:.4f} ms per launch")
+    return dict(seeded_max_abs_err=main_err, seeded_ms=seeded_ms)
+
+
+def k2_bound(nb, b):
+    """(bound ms, bound_by, bytes, flops) of nb block inverses of width b in
+    float64: A read, Ainv and d written, against 2 b^3 flops per block."""
+    nbytes = 8 * (2 * nb * b * b + nb * b)
+    ops = gj_flops(nb, b)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S["float64"] * 1e3
     bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
-    sweep_ops = gj_sweep_ops(64, b_main)
-    sweep_bound_ms = max(t_bytes, sweep_ops / FP64_VECTOR_OPS_PER_S * 1e3)
-    log(f"K2 timing (64, 156, 156) float64: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {ops} flops), "
-        f"bound of the unfused scalar sweep {sweep_bound_ms:.6f} ms ({sweep_ops} ops "
-        f"outside the tensor cores), "
-        f"torch.linalg.inv (inverse only, pivoted) {inv_ms:.4f} ms")
-    log("K2 per launch of one factorization (ne = 64, 32, 16, 8, 4, 2, 1, root): "
-        + ", ".join(f"{t:.4f}" for t in level_ms) + " ms")
-    return dict(max_abs_err=main_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, sweep_bound_ms=sweep_bound_ms, inv_ms=inv_ms,
-                level_ms=level_ms)
+    return bound_ms, bound_by, nbytes, ops
+
+
+# Limits of K2 against its plain version on the solve's own blocks without a
+# guarded pivot: d to PATH_TOL_D relative; Ainv to the larger of PATH_TOL_INV
+# max(1, max|Ainv|) (the seeded checks' limit) and b eps g max|Ainv|^2, the
+# first-order change of the inverse under a backward error of b ulps of g,
+# the largest entry the unpivoted sweep meets (at least max|A| and max|d|).
+# The BCR's upper levels and roots are far worse conditioned than seeded
+# blocks, and their sweeps grow: pivots reach 1e6 on entries of 1e2.
+PATH_TOL_INV, PATH_TOL_D = 1e-11, 1e-10
+LEVELS = ("ne=64", "ne=32", "ne=16", "ne=8", "ne=4", "ne=2", "ne=1", "root")
+
+
+def check_k2_on_path(dev, inputs, card):
+    """K2 on every input the warm chained solve gave it (captured from one
+    more warm solve), against its plain version, and timed per BCR level on
+    those inputs.  Held on every block: the inertia counts the retry loop
+    reads from its pivots, the signs of live pivots, and where Ainv and d
+    are finite.  Held on blocks without a guarded pivot: Ainv and d to the
+    limits stated above PATH_TOL_INV.  A block with a guarded (zero or NaN)
+    pivot comes from a retry trial, which the retry loop rejects on its
+    inertia alone; its errors are printed."""
+    import torch
+    from ipopt_torch.linalg import block_ldlt_inv as k2
+    from ipopt_torch.linalg.block_ldlt import _safe_pivot
+    from ipopt_torch.linalg.block_tridiag import _block_inertia_counts
+    from ipopt_torch.linalg.ldlt import _pivot_tols
+    per = LV1_K2_PER_FACTORIZATION
+    shapes = [tuple(A.shape) for A in inputs[:per]]
+    if len(inputs) != per * LV1_FACTORIZATIONS or shapes != [
+            (ne, 156, 156) for ne in (64, 32, 16, 8, 4, 2, 1, 1)]:
+        raise SystemExit(f"K2 on the path: captured {len(inputs)} inputs of shapes "
+                         f"{shapes}...")
+    tiny = torch.finfo(torch.float64).tiny
+    eps = torch.finfo(torch.float64).eps
+    level_ms, worst = [], {"regular": [0.0, 0.0], "guarded": [0.0, 0.0]}
+    worst_ratio = worst_resid = 0.0
+    max_abs_err, first_guarded = 0.0, []
+    for lev, name in enumerate(LEVELS):
+        group = inputs[lev::per]
+        n_blocks = n_guarded_blocks = n_guarded = n_pow2 = n_slow = 0
+        for A in group:
+            d_k, inv_k = k2.block_ldlt_inv(A)
+            d_p, inv_p = k2.block_ldlt_inv_plain(A)
+            guard = ~(d_p.abs() > tiny)        # zero or NaN pivots: the guard fired
+            guarded = guard.any(-1)
+            counts_k = torch.stack(_block_inertia_counts(d_k[:, None], 0.0))
+            counts_p = torch.stack(_block_inertia_counts(d_p[:, None], 0.0))
+            live = d_p.abs() > _pivot_tols(d_p.abs().amax(-1), torch.float64, 0.0)[:, None]
+            signs_ok = bool(((torch.sign(d_k) == torch.sign(d_p)) | ~live).all())
+            pattern_ok = (torch.equal(torch.isfinite(inv_k), torch.isfinite(inv_p))
+                          and torch.equal(torch.isfinite(d_k), torch.isfinite(d_p)))
+            fin = torch.isfinite(inv_p) & torch.isfinite(inv_k)
+            diff = torch.where(fin, inv_k - inv_p, 0.0).abs().amax((1, 2))
+            scale = torch.where(fin, inv_p, 0.0).abs().amax((1, 2)).clamp(min=1.0)
+            rel_inv = diff / scale
+            b = A.shape[-1]
+            growth = torch.maximum(A.abs().amax((1, 2)),
+                                   d_p.abs().nan_to_num(0.0, 0.0, 0.0).amax(-1))
+            limit = torch.maximum(PATH_TOL_INV * scale, b * eps * growth * scale ** 2)
+            ratio = diff / limit
+            rel_d = ((d_k - d_p).abs() / d_p.abs()).nan_to_num(0.0, 0.0, 0.0).amax(-1)
+            for key, mask in (("regular", ~guarded), ("guarded", guarded)):
+                if bool(mask.any()):
+                    worst[key][0] = max(worst[key][0], float(rel_inv[mask].max()))
+                    worst[key][1] = max(worst[key][1], float(rel_d[mask].max()))
+            reg = ~guarded
+            if bool(reg.any()):
+                max_abs_err = max(max_abs_err, float(diff[reg].max()),
+                                  float((d_k - d_p)[reg].abs().max()))
+                worst_ratio = max(worst_ratio, float(ratio[reg].max()))
+                eye = torch.eye(b, dtype=A.dtype, device=A.device)
+                res_k = (A[reg] @ inv_k[reg] - eye).abs().amax((1, 2))
+                res_p = (A[reg] @ inv_p[reg] - eye).abs().amax((1, 2))
+                worst_resid = max(worst_resid, float((res_k / res_p.clamp(min=eps)).max()))
+            if lev == 0:
+                first_guarded.append(bool(guarded.any()))
+            close = bool((ratio[reg] <= 1.0).all() and (rel_d[reg] <= PATH_TOL_D).all())
+            if not (torch.equal(counts_k, counts_p) and signs_ok and pattern_ok and close):
+                raise SystemExit(
+                    f"K2 on the path: level {name} disagrees with its plain version "
+                    f"(inertia equal {torch.equal(counts_k, counts_p)}, signs {signs_ok}, "
+                    f"finite pattern {pattern_ok}, regular blocks within limits {close}: "
+                    f"|dAinv| / limit {float(ratio[reg].max()) if bool(reg.any()) else 0.0:.3e}, "
+                    f"rel d {float(rel_d[reg].max()) if bool(reg.any()) else 0.0:.3e})")
+            # pivots outside the fast quotients' range: powers of two take the
+            # exact reciprocal's branch, the others the library division
+            sp = _safe_pivot(d_k)
+            pow2 = torch.frexp(sp)[0].abs() == 0.5
+            out = (sp.abs() < 2.0 ** -100) | (sp.abs() > 2.0 ** 100)
+            n_pow2 += int((out & pow2).sum())
+            n_slow += int((out & ~pow2).sum())
+            n_blocks += A.shape[0]
+            n_guarded_blocks += int(guarded.sum())
+            n_guarded += int(guard.sum())
+        ms = time_cuda(lambda g=group: [k2.block_ldlt_inv(A) for A in g],
+                       reps=10, warmup=1) / len(group)
+        level_ms.append(ms)
+        pl = k2.plan(group[0].shape[0], 156, torch.float64)
+        log(f"K2 on the path, level {name}: {len(group)} inputs of {tuple(group[0].shape)}, "
+            f"plan cs={pl.cs} strip rows={list(pl.rows)} shared={pl.smem} B; "
+            f"{n_guarded_blocks}/{n_blocks} blocks with a guarded pivot, {n_guarded} "
+            f"guarded pivots; pivots outside the fast quotients' range: {n_pow2} powers "
+            f"of two, {n_slow} others; "
+            f"inertia and live pivot signs equal -> ok; {ms:.4f} ms per launch")
+    for key, (r_inv, r_d) in worst.items():
+        held = (f"held: max |dAinv| / limit {worst_ratio:.3e}, d to {PATH_TOL_D:g}; "
+                f"max|A Ainv - I| of the kernel at most {worst_resid:.3f}x the plain "
+                f"version's" if key == "regular"
+                else "not held: the retry loop reads only their inertia")
+        log(f"K2 on the path, blocks {'without' if key == 'regular' else 'with'} a "
+            f"guarded pivot: max rel err Ainv {r_inv:.3e}, d {r_d:.3e} ({held})")
+    first = inputs[0::per]
+    trial = [A for A, g in zip(first, first_guarded) if g]
+    clean = [A for A, g in zip(first, first_guarded) if not g]
+    split = ", ".join(
+        f"{len(g)} inputs {what}: "
+        + (f"{time_cuda(lambda g=g: [k2.block_ldlt_inv(A) for A in g], reps=10, warmup=1) / len(g):.4f} ms"
+           if g else "none")
+        for g, what in ((trial, "with guarded pivots"), (clean, "without")))
+    A1 = first[-1]
+    plain_ms = time_cuda(lambda: k2.block_ldlt_inv_plain(A1), reps=3, warmup=1)
+    inv_ms = time_cuda(lambda: torch.linalg.inv_ex(A1), reps=20, warmup=2)
+    bound_ms, bound_by, nbytes, ops = k2_bound(64, 156)
+    ms = level_ms[0]
+    log(f"K2 per launch on the path's own blocks (ne = 64, 32, 16, 8, 4, 2, 1, root): "
+        + ", ".join(f"{t:.4f}" for t in level_ms) + f" ms; level 1 split: {split}; card {card}")
+    log(f"K2 timing (64, 156, 156) float64 on the path's own first-level blocks: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
+        f"{nbytes} B, {ops} flops), torch.linalg.inv_ex (inverse only, pivoted) "
+        f"{inv_ms:.4f} ms")
+    slowest = max(level_ms[1:]) / ms
+    log(f"criterion K2 <= 0.15 ms at level 1 on the path's own blocks: "
+        f"{'met' if ms <= 0.15 else 'not met'} ({ms:.4f} ms); no later level more than "
+        f"10% slower than level 1: {'met' if slowest <= 1.1 else 'not met'} "
+        f"(slowest {slowest:.3f}x)")
+    pl = k2.plan(64, 156, torch.float64)
+    return dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, inv_ms=inv_ms, level_ms=level_ms,
+                plan={"cs": pl.cs, "rows": list(pl.rows), "smem": pl.smem})
 
 
 def chained_path(dev, opts, card):
     """The chained path at full width on the card, held against the
-    reference; returns the K2 launches of the warm solve."""
+    reference; returns the K2 launches of the warm solve and every input K2
+    gets in one more warm solve."""
     import torch
     import ipopt_torch
     from ipopt_torch import modellib
@@ -289,6 +474,58 @@ def chained_path(dev, opts, card):
     if (int(r_card.status) != 0 or int(r_card.iter_count) != int(r_cpu.iter_count)
             or rel > 1e-10):
         raise SystemExit("chained path: the card and the CPU disagree at n=256")
+    from ipopt_torch.profile_main import capture_k2_inputs
+    inputs = capture_k2_inputs(lambda: ipopt_torch.solve(cnlp, device=dev, **opts))
+    return k2_launches, inputs
+
+
+# The chained restoration on the card: "hard_chain" of
+# tests/test_torch_chained.py (x_{k+1}[0] = x_k[0]^2 from x0 = -3), widened
+# to v = 200 variables per group, so its KKT blocks are 202 wide and its
+# restoration's 204 (v + 4 mk), above the 169 of the one-CTA kernel that
+# came before the cluster design.
+HARD_CHAIN_V = 200
+
+
+def hard_chain(v):
+    import torch
+    import ipopt_torch
+    return ipopt_torch.ChainedNLP(
+        f_stage=lambda xk, xk1, th: ((xk - 2.0) ** 2).sum(),
+        g_stage=lambda xk, xk1, th: torch.stack([xk1[0] - xk[0] ** 2]),
+        x0=np.full((4, v), -3.0), g_L=np.zeros(1), g_U=np.zeros(1))
+
+
+def restoration_path(dev, card):
+    """hard_chain at v = 200 solved on the card, with the launch counts set
+    to 0 before and read after, against the same solve on the CPU; returns
+    the K2 launches."""
+    import ipopt_torch
+    from ipopt_torch.linalg import block_ldlt as bl
+    from ipopt_torch.linalg import block_ldlt_inv as k2
+    prob = hard_chain(HARD_CHAIN_V)
+    ch = ipopt_torch.canonicalize_chained(prob).chain
+    bl.block_ldlt.launches = 0
+    k2.block_ldlt_inv.launches = 0
+    t0 = time.perf_counter()
+    r_card = ipopt_torch.solve(prob, device=dev, print_level=0)
+    wall = time.perf_counter() - t0
+    k2_launches, k1_launches = k2.block_ldlt_inv.launches, bl.block_ldlt.launches
+    r_cpu = ipopt_torch.solve(prob, device="cpu", print_level=0)
+    x_card, x_cpu = r_card.x.cpu().numpy(), r_cpu.x.numpy()
+    rel = float(np.abs(x_card - x_cpu).max() / np.abs(x_cpu).max())
+    got = [(int(r.status), int(r.iter_count), int(r.restoration_count))
+           for r in (r_card, r_cpu)]
+    log(f"restoration path: hard_chain v={HARD_CHAIN_V}, {ch.K + 1} groups, KKT blocks "
+        f"{ch.bs} wide, restoration blocks {ch.v + 4 * ch.mk}: card (status, iterations, "
+        f"restorations) {got[0]} in {wall:.3f} s, CPU {got[1]}; max|x_card - x_cpu| / "
+        f"max|x_cpu| = {rel:.2e} (tol 1e-8); K2 launches {k2_launches}, K1 launches "
+        f"{k1_launches}; card {card}")
+    if got[0] != got[1] or got[0][2] == 0 or rel > 1e-8:
+        raise SystemExit("restoration path: the card and the CPU disagree, or no "
+                         "restoration was entered")
+    if k2_launches == 0:
+        raise SystemExit("restoration path: K2 was not launched")
     return k2_launches
 
 
@@ -323,6 +560,15 @@ def main():
             for line in fh.read().splitlines():
                 if "registers" in line or "smem" in line or "Compiling" in line:
                     log("  ptxas: " + line.strip())
+    # K2's float64 panel products must run on the FP64 tensor cores (DMMA)
+    cuobjdump = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", libs["block_ldlt_inv"]], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts = {op: sum(f" {op}" in line for line in sass.splitlines())
+              for op in ("DMMA", "HMMA", "DFMA")}
+    log("K2 SASS (cuobjdump -sass): " + ", ".join(f"{n} {op}" for op, n in counts.items()))
+    if counts["DMMA"] == 0:
+        raise SystemExit("K2 has no DMMA instruction")
 
     # 3. kernels against their plain versions
     main_err, k_ms, plain_ms, bound_ms, bound_by = check_k1(dev)
@@ -384,9 +630,14 @@ def main():
         raise SystemExit("solve(hs071) on the card failed")
 
     # 6. the chained path
-    k2_launches = chained_path(dev, opts, card)
+    k2_launches, k2_inputs = chained_path(dev, opts, card)
+    k2_stats.update(check_k2_on_path(dev, k2_inputs, card))
+    del k2_inputs
 
-    # 7. kernels line, 8. result line
+    # 7. the chained restoration at 204-wide blocks
+    restoration_path(dev, card)
+
+    # 8. kernels line, 9. result line
     print(json.dumps({"kernels": [{
         "name": "block_ldlt", "route": "cuda",
         "source": "ipopt_torch/csrc/block_ldlt.cu",

@@ -95,11 +95,11 @@ def build_resto_chained(orig: CanonicalNLP, opts: Options) -> CanonicalNLP:
 def check_resto_block_width(ch: ChainInfo, dtype, device) -> None:
     """Refuse a chained restoration whose KKT blocks (v + 4 mk wide) exceed
     what K2 takes on the card, before any of its work is done."""
-    width = ch.v + 4 * ch.mk
-    if torch.device(device).type == "cuda" and width > block_ldlt_inv.max_block(dtype):
+    width, top = ch.v + 4 * ch.mk, block_ldlt_inv.MAX_B[dtype]
+    if torch.device(device).type == "cuda" and width > top:
         raise NotImplementedError(
             f"the chained restoration phase needs {width}-wide KKT blocks, above "
-            f"the {block_ldlt_inv.max_block(dtype)} that the block-inverse kernel "
+            f"the {top} that the block-inverse kernel "
             f"takes in {dtype} on CUDA; solve on the CPU or with resto_phase=False")
 
 

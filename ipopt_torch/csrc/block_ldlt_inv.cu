@@ -1,55 +1,104 @@
-// K2: batched unpivoted Gauss-Jordan sweep, giving the explicit inverse and
+// K2: batched unpivoted Gauss-Jordan inverse, giving the explicit inverse and
 // the LDL^T pivots of many symmetric blocks, for Hopper.
 //
 // Replaces the TPU kernel ipopt_tpu/linalg/pallas_ldlt.py::_gj_inv_kernel
-// (wrapper pallas_block_ldlt_inv), whose contract the reference's BCR levels
-// compute in jnp (block_tridiag.py::_gj_inv_lanes).  For A of shape
-// (nb, b, b) it writes Ainv (nb, b, b) and the pivot sequence d (nb, b).
-// Step k, on the working block X (initially A), with p = X[k][k] and
-// sp = p guarded to +-FLT_MIN / DBL_MIN when |p| <= that (NaN -> -tiny):
+// (wrapper pallas_block_ldlt_inv), with the algorithm the reference's BCR
+// levels run, block_tridiag.py::_gj_inv_auto.  For A of shape (nb, b, b) it
+// writes Ainv (nb, b, b) and the unguarded pivot sequence d (nb, b).
+//
+// The scalar sweep, step k on the working block X (sp = p = X[k][k] guarded
+// to +-FLT_MIN / DBL_MIN when |p| <= that, NaN -> -tiny):
 //     X[i][j] <- X[i][j] - (X[i][k] * X[k][j]) / sp     i != k, j != k
 //     X[k][j] <- -X[k][j] / sp                          j != k
 //     X[i][k] <- X[i][k] / sp                           i != k
-//     X[k][k] <- 1 / sp,        d[k] = p (unguarded)
-// Every update reads the X of step k-1.  The expressions are the
-// reference's; none can be contracted into an FMA, so the result equals the
-// plain PyTorch version (ipopt_torch/linalg/block_ldlt_inv.py::
-// block_ldlt_inv_plain) bit for bit.
+//     X[k][k] <- 1 / sp,        d[k] = p
+// every update reading the X of step k-1.  For b <= 32 this is the whole
+// algorithm, and the result equals the plain PyTorch version
+// (ipopt_torch/linalg/block_ldlt_inv.py::block_ldlt_inv_plain) and
+// _gj_inv_lanes bit for bit: none of the expressions can be contracted into
+// an FMA.  Above 32 the block goes in panels P of t = 32 rows and columns
+// (the last may be ragged), as _gj_inv_lanes_blocked does, o being the
+// indices outside P:
+//     Pinv, d[P] = the scalar sweep of X_PP;   CP = X_oP Pinv
+//     X_oo -= CP X_Po;   X_oP = CP;   X_Po = -Pinv X_Po;   X_PP = Pinv
 //
 // What bounds it: on the chained main path (LuksanVlcek1 n=4096, v=32) the
-// first BCR level is (64, 156, 156) float64.  The function needs about b^3
-// multiply-adds per block (2 b^3 = 7.6 M flops), 486 M flops per launch:
-// 7.3 us at the 67 TFLOP/s of the FP64 tensor cores, against 25 MB read and
-// written, 7.5 us at 3.35 TB/s.  So bytes bound it, barely.  This scalar
-// sweep does about 3 b^3 operations (mul, div, sub) outside the tensor cores
-// instead: 729 M per launch, 21 us at 34 TFLOP/s.  The design keeps each block in shared
-// memory for the whole sweep (one read and one write of device memory) and
-// spreads one step's b*b independent updates over 512 threads; the b steps
-// are sequential, two barriers each.  One factorization launches it 8 times
-// (ne = 64, 32, ..., 1 and the root): from ne <= 16 on, at most 16 of the
-// 132 SMs have work, and each of those CTAs still walks all b dependent
-// steps, so the tail levels, not the first, are likely to set the time.
-// Division is correctly rounded (div.rn), which costs many FP64 instructions
-// per entry; faster variants (several blocks per CTA for small b, panels on
-// the tensor cores for large b) are later work.
+// first BCR level is (64, 156, 156) float64.  The function needs b^3
+// multiply-adds per block, 486 M flops per launch: 7.3 us at the 67 TFLOP/s
+// of the FP64 tensor cores, against 25 MB read and written, 7.5 us at
+// 3.35 TB/s.  So bytes bound it, barely.  The launches of one factorization
+// go from 64 blocks down to 1 (ne = 64, 32, ..., 1 and the root), so from
+// the third on a CTA per block would leave most of the 132 SMs idle, and a
+// sweep of 156 dependent scalar steps on one SM costs ~1.3 ms whatever ne is.
 //
-// One CTA per block, the block in dynamic shared memory (b*b + 2b elements:
-// the block, and copies of column k and row k): b_max = 169 in float64,
-// 240 in float32.  Thread (tx, ty) of the 32 x 16 CTA updates rows
-// ty, ty+16, ... at columns tx, tx+32, ..., so a warp touches consecutive
-// words of one row.
+// The design:
+// - One thread-block cluster of cs CTAs per block.  CTA c keeps a strip of
+//   whole 32-row panels of the block in its shared memory for the whole
+//   factorization (the panels split as evenly as they go, the larger strips
+//   first); device memory is read once and written once.  The plan (cs, the
+//   strip rows, the shared bytes) is plain Python, block_ldlt_inv.py::plan:
+//   the smallest cs whose strips fit, widened while nb * cs <= 132 SMs, a CTA
+//   still holds a panel and the cluster stays portable (cs <= 8), to the
+//   smallest cs that gives the shortest strips those bounds allow.  So at
+//   b = 156 level 1 (ne = 64) runs cs = 2, ne = 32 cs = 3 and the tail levels
+//   spread each block over 5 SMs.
+// - One panel step, with the panel's rows held by CTA q:
+//     1. q sweeps the t x t panel in shared memory (the reference's
+//        divisions, 512 threads, ping-pong between two 32 x 32 tiles: one
+//        barrier per step);
+//     2. cluster barrier;
+//     3. every CTA copies Pinv from q's shared memory (distributed shared
+//        memory, cooperative_groups::this_cluster().map_shared_rank), forms
+//        CP = X_strip,P Pinv in place in its panel columns, and applies
+//        X_strip,o += (-CP) R_o with R_o read from q's strip in place;
+//     4. cluster barrier;
+//     5. q writes -Pinv R_o and Pinv into the panel rows, in place (each
+//        warp owns whole column tiles).
+//   Step 1 of the next panel overlaps step 5 when another CTA holds it.
+// - float64 products on the FP64 tensor cores:
+//   mma.sync.aligned.m8n8k4.row.col.f64 (DMMA), fragments loaded straight
+//   from shared memory (the strip's row stride, round_up(b, 32) + 4, is 4
+//   mod 16 doubles, so an A fragment's 8 rows hit distinct banks).  float32
+//   products are IEEE FFMA on the CUDA cores (never TF32).
+// - The sweep's quotients come from one correctly rounded reciprocal per
+//   step and a certified Markstein correction (div_by), without branches;
+//   only what the certificate cannot vouch for takes the library division.
+//   A pivot outside the certificate's range that is a power of two (the
+//   guard's +-tiny, and the 1 / tiny its step leaves behind) takes its own
+//   uniform branch: its reciprocal is exact, so each quotient is one
+//   rounded product (step_guard).  That matters on the chained path: its
+//   first inertia-correction trials (no constraint regularization yet) hit
+//   exactly zero pivots in every block, and each of those steps, and the
+//   2^1022 pivot that follows each, otherwise sent every thread of the CTA
+//   to the library division.
+// - Shared memory per CTA: (strip rows) x (round_up(b, 32) + 4) elements and
+//   2 x 32 x 32 for Pinv and its sweep buffer.  At (64, 156) float64 cs = 2:
+//   96 x 164 x 8 + 16,384 = 142,336 B.  At b = 408 float64 the 13 panels need
+//   strips of at most 2 panels (64 x 420 x 8 + 16,384 = 231,424 B of the
+//   232,448 a CTA may use; 3 panels would be 338,944), so cs = 7.  The
+//   largest b is 416 in float64 and 576 in float32.
+//   No buffer holds R_o or CP: R_o is read from q in place and CP is kept
+//   in the strip's panel columns, where it belongs after the step.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libblock_ldlt_inv.so block_ldlt_inv.cu
 // (ipopt_torch/linalg/cuda_lib.py does this at first use).
 
 #include <cuda_runtime.h>
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cfloat>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kTx = 32;
-constexpr int kTy = 16;
+constexpr int kPanel = 32;
+constexpr int kTile = kPanel * kPanel;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 8;
+static_assert(kPanel % kWarps == 0, "the sweep gives each warp whole rows");
 
 template <typename T> struct Tiny;
 template <> struct Tiny<float> {
@@ -67,63 +116,468 @@ __device__ __forceinline__ T safe_pivot(T p) {
   return ap > tiny ? p : (p >= T(0) ? tiny : -tiny);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kTx * kTy)
-gj_inv_kernel(const T* __restrict__ A, T* __restrict__ Ainv,
-              T* __restrict__ D, int b) {
-  extern __shared__ unsigned char smem_raw[];
-  T* S = reinterpret_cast<T*>(smem_raw);  // row-major b x b
-  T* colk = S + b * b;                    // column k of the previous step
-  T* rowk = colk + b;                     // row k of the previous step
-  const long long blk = blockIdx.x;
-  const int bb = b * b;
-  const int tid = threadIdx.y * kTx + threadIdx.x;
-  const T* Ab = A + blk * bb;
-  for (int e = tid; e < bb; e += kTx * kTy) S[e] = Ab[e];
-  __syncthreads();
+// Panels [first, first + count) of CTA c: as even as possible, larger first
+// (block_ldlt_inv.py::_strip_panels).
+__device__ __forceinline__ void strip_of(int n_panels, int cs, int c, int& first,
+                                         int& count) {
+  const int base = n_panels / cs, extra = n_panels % cs;
+  first = c * base + (c < extra ? c : extra);
+  count = base + (c < extra ? 1 : 0);
+}
 
-  T* Db = D + blk * b;
-  for (int k = 0; k < b; ++k) {
-    for (int i = tid; i < b; i += kTx * kTy) {
-      colk[i] = S[i * b + k];
-      rowk[i] = S[k * b + i];
-    }
-    __syncthreads();
-    const T p = colk[k];
-    const T sp = safe_pivot(p);
-    if (tid == 0) Db[k] = p;
-    for (int i = threadIdx.y; i < b; i += kTy) {
-      T* Si = S + i * b;
-      if (i == k) {
-        for (int j = threadIdx.x; j < b; j += kTx)
-          Si[j] = j == k ? T(1) / sp : -rowk[j] / sp;
-      } else {
-        const T ci = colk[i];
-        for (int j = threadIdx.x; j < b; j += kTx)
-          Si[j] = j == k ? ci / sp : Si[j] - (ci * rowk[j]) / sp;
-      }
-    }
-    __syncthreads();
+__device__ __forceinline__ int owner_of(int panel, int n_panels, int cs) {
+  const int base = n_panels / cs, extra = n_panels % cs;
+  const int big = extra * (base + 1);
+  return panel < big ? panel / (base + 1) : extra + (panel - big) / base;
+}
+
+// d(2) = a(8x4, row) b(4x8, col) + c(2): lane l holds a[l/4][l%4],
+// b[l%4][l/4] and c, d[l/4][2(l%4) + {0, 1}].
+__device__ __forceinline__ void dmma(double& d0, double& d1, double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
+      : "+d"(d0), "+d"(d1)
+      : "d"(a), "d"(b));
+}
+
+// Round-to-nearest arithmetic that the compiler never contracts into an FMA.
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+
+// The ranges in which div_by's arithmetic neither under- nor overflows:
+// |a| in [lo, hi] (or a = 0) and the divisor in [plo, phi], so the quotient
+// lies in [lo / phi, hi / plo] and every residual is exact.
+template <typename T> struct Exact;
+template <> struct Exact<double> {
+  static constexpr double lo = 0x1p-800, hi = 0x1p800, plo = 0x1p-100, phi = 0x1p100;
+  static __device__ __forceinline__ bool rn(double q, double r, double b) {
+    // 1/2 ulp(q) from its exponent; 1/4 ulp toward zero from a power of two
+    const long long bits = __double_as_longlong(q);
+    const long long ex = (bits >> 52) & 0x7ff;
+    const bool pow2 = (bits & 0xfffffffffffffLL) == 0;
+    const bool down = ((r < 0.0) != (b < 0.0)) != (q < 0.0);
+    const double h = __longlong_as_double((ex - 53 - (pow2 & down)) << 52);
+    return fabs(r) < fabs(b) * h;
   }
+};
+template <> struct Exact<float> {
+  static constexpr float lo = 0x1p-50f, hi = 0x1p50f, plo = 0x1p-30f, phi = 0x1p30f;
+  static __device__ __forceinline__ bool rn(float q, float r, float b) {
+    const int bits = __float_as_int(q);
+    const int ex = (bits >> 23) & 0xff;
+    const bool pow2 = (bits & 0x7fffff) == 0;
+    const bool down = ((r < 0.0f) != (b < 0.0f)) != (q < 0.0f);
+    const float h = __int_as_float((ex - 24 - (pow2 & down)) << 23);
+    return fabsf(r) < fabsf(b) * h;
+  }
+};
 
-  T* Ob = Ainv + blk * bb;
-  for (int e = tid; e < bb; e += kTx * kTy) Ob[e] = S[e];
+// a / b rounded to nearest, from y = RN(1 / b), without a division:
+// q = RN(a y), then q' = RN(q + (a - b q) y) (Markstein's correction; each
+// residual a - b q is exact in one FMA).  q' is kept only when it is
+// certified: a / b - q' = r' / b with r' = a - b q' exact, and q' is the
+// rounded quotient iff |r'| < |b| h, h half the gap from q' to its
+// neighbour on the side of a / b (ties cannot occur).  Otherwise, and
+// outside Exact's ranges, ok turns false and the caller divides with div_rn.
+// No branch: the four quotients of a thread overlap.
+template <typename T>
+__device__ __forceinline__ T div_by(T a, T b, T y, bool& ok) {
+  const T q = mul_rn(a, y);
+  const T q1 = fma(fma(-b, q, a), y, q);
+  const T aa = fabs(a);
+  const bool zero = a == T(0);
+  const bool in = (aa >= Exact<T>::lo) & (aa <= Exact<T>::hi);
+  ok &= zero | (in & Exact<T>::rn(q1, fma(-b, q1, a), b));
+  return zero ? q : q1;
+}
+
+// One sweep step for element (i, j) of the panel, from the previous step's
+// x = X[i][j], c = X[i][k], r = X[k][j]; y = 1/sp.
+template <typename T>
+__device__ __forceinline__ T step_fast(int i, int j, int k, T x, T c, T r, T sp,
+                                       T y, bool& ok) {
+  const bool row = i == k, col = j == k;
+  const T a = row ? -r : (col ? c : mul_rn(c, r));
+  const T q = div_by(a, sp, y, ok);
+  return (row & col) ? y : ((row | col) ? q : sub_rn(x, q));
+}
+
+// Normal powers of two whose reciprocal is normal too: 1 / s is exact.
+template <typename T> struct Pow2;
+template <> struct Pow2<double> {
+  static __device__ __forceinline__ bool is(double s) {
+    const long long u = __double_as_longlong(s), e = (u >> 52) & 0x7ff;
+    return (u & 0xfffffffffffffLL) == 0 && e >= 1 && e <= 2045;
+  }
+  static __device__ __forceinline__ double recip(double s) {
+    const long long e = (__double_as_longlong(s) >> 52) & 0x7ff;
+    return copysign(__longlong_as_double((2046 - e) << 52), s);
+  }
+};
+template <> struct Pow2<float> {
+  static __device__ __forceinline__ bool is(float s) {
+    const int u = __float_as_int(s), e = (u >> 23) & 0xff;
+    return (u & 0x7fffff) == 0 && e >= 1 && e <= 253;
+  }
+  static __device__ __forceinline__ float recip(float s) {
+    const int e = (__float_as_int(s) >> 23) & 0xff;
+    return copysignf(__int_as_float((254 - e) << 23), s);
+  }
+};
+
+// The step when sp is such a power of two, y = 1 / sp exactly: RN(a y) is
+// RN(a / sp) for every a (0, huge, inf and NaN included).
+template <typename T>
+__device__ __forceinline__ T step_guard(int i, int j, int k, T x, T c, T r, T y) {
+  const bool row = i == k, col = j == k;
+  const T q = mul_rn(row ? -r : (col ? c : mul_rn(c, r)), y);
+  return (row & col) ? y : ((row | col) ? q : sub_rn(x, q));
 }
 
 template <typename T>
-int launch(const void* A, void* Ainv, void* D, int nb, int b, int device,
-           void* stream) {
+__device__ __forceinline__ T step_exact(int i, int j, int k, T x, T c, T r, T sp) {
+  if (i == k) return j == k ? div_rn(T(1), sp) : div_rn(-r, sp);
+  return j == k ? div_rn(c, sp) : sub_rn(x, div_rn(mul_rn(c, r), sp));
+}
+
+// 1. The scalar sweep of the t x t panel at Xp (row stride ld) into Pl
+// (32 x 32, zero outside t x t), with Pw as the ping-pong tile; the pivots
+// go to Dp.  Whole CTA; ends after a barrier.  Thread (warp, lane) owns
+// column lane of rows warp and warp + 16, and loads all its operands before
+// it computes, so its quotients overlap.  Lane k
+// keeps pivot k in a register: a store to device memory inside the loop
+// would hold every step's barrier until it completes.
+template <typename T>
+__device__ void sweep_panel(const T* Xp, int ld, int t, T* Pl, T* Pw, T* Dp) {
+  constexpr int kRows = kPanel / kWarps;
+  const int j = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int m = 0; m < kRows; ++m) {
+    const int i = warp + kWarps * m;
+    Pl[i * kPanel + j] = (i < t && j < t) ? Xp[i * ld + j] : T(0);
+    Pw[i * kPanel + j] = T(0);
+  }
+  __syncthreads();
+  T* src = Pl;
+  T* dst = Pw;
+  T dj = T(0);
+  for (int k = 0; k < t; ++k) {
+    const T p = src[k * kPanel + k];
+    if (j == k) dj = p;
+    const T r = src[k * kPanel + j];
+    T c[kRows], x[kRows], v[kRows];
+#pragma unroll
+    for (int m = 0; m < kRows; ++m) {
+      c[m] = src[(warp + kWarps * m) * kPanel + k];
+      x[m] = src[(warp + kWarps * m) * kPanel + j];
+    }
+    const T sp = safe_pivot(p);
+    const T asp = fabs(sp);
+    // sp is the same in every thread: the branches are uniform
+    if ((asp >= Exact<T>::plo) & (asp <= Exact<T>::phi)) {
+      const T y = div_rn(T(1), sp);
+      bool ok = true;
+#pragma unroll
+      for (int m = 0; m < kRows; ++m)
+        v[m] = step_fast(warp + kWarps * m, j, k, x[m], c[m], r, sp, y, ok);
+      if (!ok) {
+#pragma unroll
+        for (int m = 0; m < kRows; ++m)
+          v[m] = step_exact(warp + kWarps * m, j, k, x[m], c[m], r, sp);
+      }
+    } else if (Pow2<T>::is(sp)) {
+      const T y = Pow2<T>::recip(sp);
+#pragma unroll
+      for (int m = 0; m < kRows; ++m)
+        v[m] = step_guard(warp + kWarps * m, j, k, x[m], c[m], r, y);
+    } else {
+#pragma unroll
+      for (int m = 0; m < kRows; ++m)
+        v[m] = step_exact(warp + kWarps * m, j, k, x[m], c[m], r, sp);
+    }
+#pragma unroll
+    for (int m = 0; m < kRows; ++m) {
+      const int i = warp + kWarps * m;
+      if (i < t && j < t) dst[i * kPanel + j] = v[m];
+    }
+    __syncthreads();
+    T* tmp = src;
+    src = dst;
+    dst = tmp;
+  }
+  if (warp == 0 && j < t) Dp[j] = dj;
+  if (src != Pl) {
+    for (int e = threadIdx.x; e < kTile; e += kThreads) Pl[e] = src[e];
+    __syncthreads();
+  }
+}
+
+// The three products of a panel step.  S is the CTA's strip (nrows real
+// rows, stride ld), p0 the panel's first column, t its width, skip the
+// strip row of the panel when this CTA holds it (else -1).
+//   form_cp:      S[r, P] <- S[r, P] Pinv                  (r outside P)
+//   update_strip: S[r, o] <- S[r, o] + (-S[r, P]) R[:, o]  (r outside P)
+//   update_panel: Sp[:, o] <- (-Pinv) Sp[:, o]             (the panel rows)
+template <typename T> struct Products;
+
+template <> struct Products<double> {
+  static __device__ void form_cp(double* S, int ld, int nrows, int skip, int p0,
+                                 int t, const double* Pl) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, c4 = lane & 3;
+    const int mtiles = (nrows + 7) >> 3;
+    if (warp >= mtiles) return;
+    double bf[4][8];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int s = 0; s < 8; ++s) bf[nt][s] = Pl[(4 * s + c4) * kPanel + 8 * nt + g];
+    for (int mt = warp; mt < mtiles; mt += kWarps) {
+      const int r0 = mt * 8;
+      if (r0 >= skip && r0 < skip + kPanel && skip >= 0) continue;
+      double* Xr = S + (r0 + g) * ld + p0;
+      double af[8];
+#pragma unroll
+      for (int s = 0; s < 8; ++s) af[s] = 4 * s + c4 < t ? Xr[4 * s + c4] : 0.0;
+      double acc[4][2] = {};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int s = 0; s < 8; ++s) dmma(acc[nt][0], acc[nt][1], af[s], bf[nt][s]);
+      __syncwarp();
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        *reinterpret_cast<double2*>(Xr + 8 * nt + 2 * c4) =
+            make_double2(acc[nt][0], acc[nt][1]);
+      __syncwarp();
+    }
+  }
+
+  static __device__ void update_strip(double* S, int ld, int nrows, int skip,
+                                      int p0, int t, int b, const double* R) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, c4 = lane & 3;
+    const int mtiles = (nrows + 7) >> 3, ntiles = (b + 7) >> 3;
+    for (int nt = warp; nt < ntiles; nt += kWarps) {
+      const int n0 = nt * 8;
+      if (n0 >= p0 && n0 < p0 + kPanel) continue;
+      double bf[8];
+#pragma unroll
+      for (int s = 0; s < 8; ++s)
+        bf[s] = 4 * s + c4 < t ? R[(4 * s + c4) * ld + n0 + g] : 0.0;
+      for (int mt = 0; mt < mtiles; ++mt) {
+        const int r0 = mt * 8;
+        if (r0 >= skip && r0 < skip + kPanel && skip >= 0) continue;
+        double* Xr = S + (r0 + g) * ld;
+        double2 c = *reinterpret_cast<const double2*>(Xr + n0 + 2 * c4);
+#pragma unroll
+        for (int s = 0; s < 8; ++s) {
+          const double a = 4 * s + c4 < t ? -Xr[p0 + 4 * s + c4] : 0.0;
+          dmma(c.x, c.y, a, bf[s]);
+        }
+        *reinterpret_cast<double2*>(Xr + n0 + 2 * c4) = c;
+      }
+    }
+  }
+
+  static __device__ void update_panel(double* Sp, int ld, int p0, int t, int b,
+                                      const double* Pl) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, c4 = lane & 3;
+    const int ntiles = (b + 7) >> 3;
+    if (warp >= ntiles) return;
+    double af[4][8];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int s = 0; s < 8; ++s) af[mt][s] = -Pl[(8 * mt + g) * kPanel + 4 * s + c4];
+    for (int nt = warp; nt < ntiles; nt += kWarps) {
+      const int n0 = nt * 8;
+      if (n0 >= p0 && n0 < p0 + kPanel) continue;
+      double bf[8];
+#pragma unroll
+      for (int s = 0; s < 8; ++s)
+        bf[s] = 4 * s + c4 < t ? Sp[(4 * s + c4) * ld + n0 + g] : 0.0;
+      double acc[4][2] = {};
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int s = 0; s < 8; ++s) dmma(acc[mt][0], acc[mt][1], af[mt][s], bf[s]);
+      __syncwarp();
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        *reinterpret_cast<double2*>(Sp + (8 * mt + g) * ld + n0 + 2 * c4) =
+            make_double2(acc[mt][0], acc[mt][1]);
+    }
+  }
+};
+
+template <> struct Products<float> {
+  // a warp per strip row, lane n computes CP[r][n]
+  static __device__ void form_cp(float* S, int ld, int nrows, int skip, int p0,
+                                 int t, const float* Pl) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (int r = warp; r < nrows; r += kWarps) {
+      if (r >= skip && r < skip + kPanel && skip >= 0) continue;
+      float* Xr = S + r * ld + p0;
+      float cp = 0.0f;
+      for (int k = 0; k < t; ++k) cp = fmaf(Xr[k], Pl[k * kPanel + lane], cp);
+      __syncwarp();
+      Xr[lane] = cp;
+      __syncwarp();
+    }
+  }
+
+  // a warp per (32 columns, 8 rows), lane j keeps R[:, j] in registers
+  static __device__ void update_strip(float* S, int ld, int nrows, int skip,
+                                      int p0, int t, int b, const float* R) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int chunks = (b + 31) >> 5, groups = (nrows + 7) >> 3;
+    for (int task = warp; task < chunks * groups; task += kWarps) {
+      const int j = (task % chunks) * 32 + lane, r0 = (task / chunks) * 8;
+      if (j - lane == p0) continue;
+      float rk[kPanel];
+#pragma unroll
+      for (int k = 0; k < kPanel; ++k) rk[k] = k < t ? R[k * ld + j] : 0.0f;
+      for (int r = r0; r < r0 + 8 && r < nrows; ++r) {
+        if (r >= skip && r < skip + kPanel && skip >= 0) continue;
+        float* Xr = S + r * ld;
+        float acc = Xr[j];
+#pragma unroll
+        for (int k = 0; k < kPanel; ++k)
+          if (k < t) acc = fmaf(-Xr[p0 + k], rk[k], acc);
+        Xr[j] = acc;
+      }
+    }
+  }
+
+  // a warp per 32 columns, lane j owns column j of the panel rows
+  static __device__ void update_panel(float* Sp, int ld, int p0, int t, int b,
+                                      const float* Pl) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int chunks = (b + 31) >> 5;
+    for (int ch = warp; ch < chunks; ch += kWarps) {
+      const int j = ch * 32 + lane;
+      if (ch * 32 == p0) continue;
+      float rk[kPanel];
+#pragma unroll
+      for (int k = 0; k < kPanel; ++k) rk[k] = k < t ? Sp[k * ld + j] : 0.0f;
+      for (int i = 0; i < kPanel; ++i) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int k = 0; k < kPanel; ++k) acc = fmaf(-Pl[i * kPanel + k], rk[k], acc);
+        Sp[i * ld + j] = acc;
+      }
+    }
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gj_inv_cluster_kernel(const T* __restrict__ A, T* __restrict__ Ainv,
+                      T* __restrict__ D, int b) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const long long blk = blockIdx.x / cs;
+  const int n_panels = (b + kPanel - 1) / kPanel;
+  const int ld = n_panels * kPanel + 4;
+  const int alloc_rows = (n_panels + cs - 1) / cs * kPanel;
+  int first, count;
+  strip_of(n_panels, cs, rank, first, count);
+  const int row0 = first * kPanel;
+  const int nrows = min(b, (first + count) * kPanel) - row0;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* S = reinterpret_cast<T*>(smem_raw);  // alloc_rows x ld, the strip
+  T* Pl = S + alloc_rows * ld;            // 32 x 32: Pinv of the panel
+  T* Pw = Pl + kTile;                     // 32 x 32: the sweep's other tile
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // the strip, by asynchronous copies all in flight at once; zero padding
+  const T* Ab = A + blk * b * b;
+  for (int i = warp; i < alloc_rows; i += kWarps)
+    for (int j = lane; j < ld; j += 32) {
+      if (i < nrows && j < b)
+        __pipeline_memcpy_async(S + i * ld + j, Ab + (long long)(row0 + i) * b + j,
+                                sizeof(T));
+      else
+        S[i * ld + j] = T(0);
+    }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  T* Db = D + blk * b;
+  for (int pi = 0; pi < n_panels; ++pi) {
+    const int p0 = pi * kPanel;
+    const int t = min(kPanel, b - p0);
+    const int q = owner_of(pi, n_panels, cs);
+    const bool own = q == rank;
+    const int skip = own ? p0 - row0 : -1;
+    if (own) sweep_panel<T>(S + skip * ld + p0, ld, t, Pl, Pw, Db + p0);
+    cluster.sync();
+    int q_first, q_count;
+    strip_of(n_panels, cs, q, q_first, q_count);
+    const T* R = own ? S + skip * ld
+                     : cluster.map_shared_rank(S, q) + (p0 - q_first * kPanel) * ld;
+    if (!own) {
+      const T* Plq = cluster.map_shared_rank(Pl, q);
+      for (int e = threadIdx.x; e < kTile; e += kThreads) Pl[e] = Plq[e];
+      __syncthreads();
+    }
+    Products<T>::form_cp(S, ld, nrows, skip, p0, t, Pl);
+    __syncthreads();
+    Products<T>::update_strip(S, ld, nrows, skip, p0, t, b, R);
+    cluster.sync();
+    if (own) {
+      T* Sp = S + skip * ld;
+      Products<T>::update_panel(Sp, ld, p0, t, b, Pl);
+      for (int e = threadIdx.x; e < kTile; e += kThreads)
+        Sp[(e >> 5) * ld + p0 + (e & 31)] = Pl[e];
+      __syncthreads();
+    }
+  }
+
+  T* Ob = Ainv + blk * b * b;
+  for (int i = warp; i < nrows; i += kWarps)
+    for (int j = lane; j < b; j += 32) Ob[(long long)(row0 + i) * b + j] = S[i * ld + j];
+}
+
+template <typename T>
+int launch(const void* A, void* Ainv, void* D, int nb, int b, int cs, int smem,
+           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (nb <= 0 || b <= 0) return 0;
-  const size_t smem = (size_t)(b * b + 2 * b) * sizeof(T);
-  err = cudaFuncSetAttribute(gj_inv_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  const int n_panels = (b + kPanel - 1) / kPanel;
+  if (cs < 1 || cs > kMaxCluster || cs > n_panels) return (int)cudaErrorInvalidValue;
+  const size_t rows = (size_t)((n_panels + cs - 1) / cs) * kPanel;
+  const size_t need = (rows * (n_panels * kPanel + 4) + 2 * kTile) * sizeof(T);
+  if (smem < 0 || (size_t)smem < need) return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(gj_inv_cluster_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  gj_inv_kernel<T><<<nb, dim3(kTx, kTy), smem,
-                     reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(A), static_cast<T*>(Ainv), static_cast<T*>(D), b);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)nb * (unsigned)cs, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = reinterpret_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, gj_inv_cluster_kernel<T>, static_cast<const T*>(A),
+                           static_cast<T*>(Ainv), static_cast<T*>(D), b);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -133,15 +587,17 @@ extern "C" {
 
 // Each returns the cudaError_t of the launch (0 on success).  Pointers are
 // device pointers of contiguous (nb, b, b), (nb, b, b) and (nb, b) arrays;
-// stream is a cudaStream_t of `device`.
-int block_ldlt_inv_f32(const void* A, void* Ainv, void* D, int nb, int b,
-                       int device, void* stream) {
-  return launch<float>(A, Ainv, D, nb, b, device, stream);
+// cs and smem come from block_ldlt_inv.py::plan; stream is a cudaStream_t of
+// `device`.
+int block_ldlt_inv_f32(const void* A, void* Ainv, void* D, int nb, int b, int cs,
+                       int smem, int device, void* stream) {
+  return launch<float>(A, Ainv, D, nb, b, cs, smem, device, stream);
 }
 
-int block_ldlt_inv_f64(const void* A, void* Ainv, void* D, int nb, int b,
-                       int device, void* stream) {
-  return launch<double>(A, Ainv, D, nb, b, device, stream);
+int block_ldlt_inv_f64(const void* A, void* Ainv, void* D, int nb, int b, int cs,
+                       int smem, int device, void* stream) {
+  return launch<double>(A, Ainv, D, nb, b, cs, smem, device, stream);
 }
+
 
 }  // extern "C"

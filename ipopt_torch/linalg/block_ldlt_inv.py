@@ -1,58 +1,124 @@
-"""K2: batched unpivoted Gauss-Jordan sweep -> pivots + explicit inverse.
+"""K2: batched unpivoted Gauss-Jordan inverse -> pivots + explicit inverse.
 
 Replaces the TPU kernel ``ipopt_tpu/linalg/pallas_ldlt.py::_gj_inv_kernel``
-(wrapper ``pallas_block_ldlt_inv``, ``pallas_ldlt.py:131-152``), whose
-contract the reference's BCR levels compute in jnp (``_gj_inv_lanes``,
-``block_tridiag.py:243-282``).  The unpivoted Gauss-Jordan pivot at step k
-equals the k-th LDL^T pivot, so one sweep gives the inverse and the inertia.
-On the chained main path every BCR level and the root factor their
-eliminated blocks with one launch: (64, 156, 156) float64 first, then
-32, 16, ..., 1 blocks and the root, eight launches per factorization.
+(wrapper ``pallas_block_ldlt_inv``, ``pallas_ldlt.py:131-152``), with the
+algorithm the reference's BCR levels run, ``_gj_inv_auto``
+(``block_tridiag.py:366-370``): the scalar sweep ``_gj_inv_lanes`` for
+b <= 32, the panel-32 sweep ``_gj_inv_lanes_blocked`` (``:299-349``) above.
+The unpivoted Gauss-Jordan pivot at step k equals the k-th LDL^T pivot, so
+one sweep gives the inverse and the inertia.  On the chained main path every
+BCR level and the root factor their eliminated blocks with one launch:
+(64, 156, 156) float64 first, then 32, 16, ..., 1 blocks and the root, eight
+launches per factorization.
 
-- ``block_ldlt_inv_plain(A)``: the plain PyTorch version, the same loop over
-  k on the whole (nb, b, b) tensor.  The CPU path and the tests use it.
+- ``block_ldlt_inv_plain(A)``: the plain PyTorch version (scalar loop over k
+  on the whole (nb, b, b) tensor for b <= 32; panels of 32 with
+  ``torch.matmul`` products above).  The CPU path and the tests use it.
 - ``block_ldlt_inv(A)``: the wrapper, A (nb, b, b) -> (d (nb, b),
   Ainv (nb, b, b)); the reference pads d to (nb, 8, b) for TPU tiles, the
   port does not.  A CPU tensor goes to the plain version; a CUDA tensor goes
   to the hand-written kernel ``csrc/block_ldlt_inv.cu`` or raises.  There is
   no fallback from the kernel to the plain version.
   ``block_ldlt_inv.launches`` counts the kernel launches.
+- ``plan(nb, b, dtype)``: the kernel's launch plan (one thread-block cluster
+  of ``cs`` CTAs per block, each CTA holding a strip of whole panels of rows
+  in shared memory); ``MAX_B[dtype]`` is the largest b it can plan.
 
-What bounds the kernel on an H100: at (64, 156, 156) float64, the function
-needs ~b^3 multiply-adds per block (486 M flops per launch, 7.3 us at the
+What bounds the kernel on an H100: at (64, 156, 156) float64 the function
+needs b^3 multiply-adds per block (486 M flops per launch, 7.3 us at the
 67 TFLOP/s of the FP64 tensor cores) against 25 MB moved (7.5 us at
-3.35 TB/s): bytes, barely.  The bit-exact scalar sweep does ~3 b^3
-operations outside the tensor cores (729 M, 21 us at 34 TFLOP/s).  See the source note in
-``csrc/block_ldlt_inv.cu`` for the design.  No PyTorch call computes this
-function: ``torch.linalg.inv`` pivots and gives no pivot sequence, and
+3.35 TB/s): bytes, barely.  See the source note in ``csrc/block_ldlt_inv.cu``
+for the design.  No PyTorch call computes this function:
+``torch.linalg.inv`` pivots and gives no pivot sequence, and
 ``torch.linalg.ldl_factor`` pivots (Bunch-Kaufman).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
 from . import cuda_lib
 from .block_ldlt import _safe_pivot
 
+# Panel width of the blocked sweep; at or below it one scalar sweep.
+PANEL = 32
+# The kernel's clusters stay within the portable size, so no launch needs
+# cudaFuncAttributeNonPortableClusterSizeAllowed.
+MAX_CLUSTER = 8
+# SMs of an H100 SXM: the plan widens clusters while the launch fits them.
+NUM_SMS = 132
+
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p]
 
 
-def max_block(dtype) -> int:
-    """Largest b the kernel takes for ``dtype``: (b*b + 2b) elements must
-    fit in a CTA's shared memory (169 in float64, 240 in float32)."""
-    return cuda_lib.max_block(torch.finfo(dtype).bits // 8, 2)
+class Plan(NamedTuple):
+    cs: int                 # CTAs per cluster, one cluster per block
+    rows: Tuple[int, ...]   # rows of the block each CTA holds, in order
+    smem: int               # dynamic shared bytes per CTA
 
 
-_MAX_B = {dt: max_block(dt) for dt in (torch.float32, torch.float64)}
+def _strip_panels(n_panels: int, cs: int):
+    """Panels of rows per CTA: as even as possible, the larger first."""
+    base, extra = divmod(n_panels, cs)
+    return [base + (c < extra) for c in range(cs)]
 
 
-def block_ldlt_inv_plain(A: torch.Tensor):
-    """Plain PyTorch Gauss-Jordan sweep: A (nb, b, b) -> (d (nb, b),
-    Ainv (nb, b, b)).  Step for step the arithmetic of ``_gj_inv_kernel``
-    and ``_gj_inv_lanes``; every update reads the previous step's X."""
+def _smem(b: int, cs: int, esize: int) -> int:
+    """Shared bytes per CTA: a strip of whole 32-row panels with a padded
+    row stride (round_up(b, 32) + 4 elements: whole panels of columns, and
+    conflict-free fragment loads), plus the panel inverse and its sweep
+    buffer (2 x 32 x 32)."""
+    n_panels = -(-b // PANEL)
+    ld = n_panels * PANEL + 4
+    strip_rows = max(_strip_panels(n_panels, cs)) * PANEL
+    return (strip_rows * ld + 2 * PANEL * PANEL) * esize
+
+
+def plan(nb: int, b: int, dtype) -> Plan:
+    """The launch plan of ``nb`` blocks of width ``b``: the smallest cluster
+    whose strips fit one CTA's shared memory, widened while the launch fits
+    the card's SMs (nb * cs <= 132), a CTA still holds a panel and the
+    cluster stays portable (<= 8), to the smallest cluster whose strips are
+    the shortest those bounds allow.  Raises if no cluster fits."""
+    esize = torch.finfo(dtype).bits // 8
+    n_panels = -(-b // PANEL)
+    cs = 1
+    while _smem(b, cs, esize) > cuda_lib.SMEM_BYTES:
+        cs += 1
+        if cs > min(MAX_CLUSTER, n_panels):
+            raise ValueError(f"block_ldlt_inv: b = {b} does not fit a cluster of "
+                             f"{MAX_CLUSTER} CTAs in {dtype}")
+    widest = max(cs, min(MAX_CLUSTER, n_panels, NUM_SMS // max(nb, 1)))
+    shortest = -(-n_panels // widest)
+    while -(-n_panels // cs) > shortest:
+        cs += 1
+    rows = [PANEL * p for p in _strip_panels(n_panels, cs)]
+    rows[-1] -= n_panels * PANEL - b
+    return Plan(cs=cs, rows=tuple(rows), smem=_smem(b, cs, esize))
+
+
+def _max_block(esize: int) -> int:
+    """The largest b the kernel takes: whole panels, each CTA of the widest
+    portable cluster holding its strip (the shared bytes grow with the
+    panel count)."""
+    n = 1
+    while _smem(PANEL * (n + 1), min(MAX_CLUSTER, n + 1), esize) <= cuda_lib.SMEM_BYTES:
+        n += 1
+    return PANEL * n
+
+
+# Largest b per dtype: 416 in float64, 576 in float32.
+MAX_B = {dt: _max_block(torch.finfo(dt).bits // 8) for dt in (torch.float32, torch.float64)}
+
+
+def _gj_sweep(A: torch.Tensor):
+    """Scalar Gauss-Jordan sweep: A (nb, b, b) -> (d (nb, b), Ainv).  Step
+    for step the arithmetic of ``_gj_inv_kernel`` and ``_gj_inv_lanes``;
+    every update reads the previous step's X."""
     nb, b, _ = A.shape
     X = A.clone()
     d = A.new_empty((nb, b))
@@ -67,6 +133,29 @@ def block_ldlt_inv_plain(A: torch.Tensor):
         Xn[:, k, :] = -row / sp
         Xn[:, :, k] = col / sp
         Xn[:, k, k] = one / sp[:, 0]
+        X = Xn
+    return d, X
+
+
+def block_ldlt_inv_plain(A: torch.Tensor):
+    """Plain PyTorch ``_gj_inv_auto``: A (nb, b, b) -> (d (nb, b),
+    Ainv (nb, b, b)).  For b <= 32 the scalar sweep; above, panels P of 32
+    (the last may be ragged), each: Pinv = the sweep of X_PP, CP = X_oP Pinv,
+    X_oo -= CP X_Po, X_oP = CP, X_Po = -Pinv X_Po, X_PP = Pinv."""
+    nb, b, _ = A.shape
+    if b <= PANEL:
+        return _gj_sweep(A)
+    X = A.clone()
+    d = A.new_empty((nb, b))
+    for p0 in range(0, b, PANEL):
+        P = slice(p0, min(p0 + PANEL, b))
+        d[:, P], Pinv = _gj_sweep(X[:, P, P])
+        C, R = X[:, :, P], X[:, P, :]
+        CP = torch.matmul(C, Pinv)
+        Xn = X - torch.matmul(CP, R)
+        Xn[:, :, P] = CP
+        Xn[:, P, :] = -torch.matmul(Pinv, R)
+        Xn[:, P, P] = Pinv
         X = Xn
     return d, X
 
@@ -92,18 +181,19 @@ def block_ldlt_inv(A: torch.Tensor):
     if not A.is_contiguous():
         raise ValueError("block_ldlt_inv: A must be contiguous")
     nb, b, _ = A.shape
-    if b > _MAX_B[A.dtype]:
+    if b > MAX_B[A.dtype]:
         raise ValueError(f"block_ldlt_inv: b = {b} exceeds the kernel's limit "
-                         f"{_MAX_B[A.dtype]} for {A.dtype}")
+                         f"{MAX_B[A.dtype]} for {A.dtype}")
     Ainv = torch.empty_like(A)
     d = torch.empty((nb, b), dtype=A.dtype, device=A.device)
     if nb == 0 or b == 0:
         return d, Ainv
+    pl = plan(nb, b, A.dtype)
     lib = _library()
     fn = lib.block_ldlt_inv_f64 if A.dtype == torch.float64 else lib.block_ldlt_inv_f32
     dev = A.device.index if A.device.index is not None else torch.cuda.current_device()
-    err = fn(A.data_ptr(), Ainv.data_ptr(), d.data_ptr(), nb, b, dev,
-             torch.cuda.current_stream(A.device).cuda_stream)
+    err = fn(A.data_ptr(), Ainv.data_ptr(), d.data_ptr(), nb, b, pl.cs, pl.smem,
+             dev, torch.cuda.current_stream(A.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"block_ldlt_inv kernel launch failed: CUDA error {err}")
     block_ldlt_inv.launches += 1

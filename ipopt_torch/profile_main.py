@@ -13,12 +13,19 @@ with the options of ``bench.py:74-80``: once to warm up, then once under
 - host time by solver function (cumulative seconds, from cProfile);
 - device time: busy total, idle share of the wall, the kernels with the most
   device time, and the path's kernel's device time per launch (K1
-  ``block_ldlt`` or K2 ``block_ldlt_inv``).
+  ``block_ldlt`` or K2 ``block_ldlt_inv``);
+- for the chained path, K2's time per launch back to back (CUDA events):
+  on seeded (64, 156, 156) blocks, on the solve's own first-level blocks,
+  and on every input the solve gave it, in the solve's order, beside its
+  device time per launch inside the solve; with the SM clock and power
+  draw that ``nvidia-smi`` sampled every 50 ms inside each window (about
+  2 s of launches back to back).
 It needs a CUDA device.
 """
 from __future__ import annotations
 
 import cProfile
+import datetime
 import pstats
 import subprocess
 import sys
@@ -29,6 +36,7 @@ import torch
 from . import Options, canonicalize_chained, modellib, solve, solve_batched, stack_problems
 from .linalg import block_ldlt as bl
 from .linalg import block_ldlt_inv as k2
+from .linalg import block_tridiag
 
 BATCH = 512
 OPTS = dict(tol=1e-8, acceptable_tol=1e-6, acceptable_iter=10, print_level=0)
@@ -45,6 +53,84 @@ FUNCS = ("solve_canonical", "initial_state", "_ipm_step_impl", "compute_hessian"
 def _device_us(e):
     t = getattr(e, "self_device_time_total", None)
     return e.self_cuda_time_total if t is None else t
+
+
+class _Clocks:
+    """``nvidia-smi`` sampling the SM clock (MHz) and power draw (W) every
+    50 ms; ``stop(t0, t1)`` ends it and summarizes the samples taken between
+    the host times t0 and t1 (``time.time()``)."""
+
+    def __init__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=timestamp,clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "50"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        time.sleep(1.0)  # let the first samples come before the window opens
+
+    def stop(self, t0, t1) -> str:
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        rows = []
+        for line in out.splitlines():
+            try:
+                stamp, clk, pw = (v.strip() for v in line.split(",")[:3])
+                t = datetime.datetime.strptime(stamp, "%Y/%m/%d %H:%M:%S.%f").timestamp()
+                if t0 <= t <= t1:
+                    rows.append((float(clk), float(pw)))
+            except ValueError:
+                continue
+        if not rows:
+            return "no nvidia-smi samples in the window"
+        clk = sorted(r[0] for r in rows)
+        pw = sorted(r[1] for r in rows)
+        return (f"SM clock {clk[0]:.0f}/{clk[len(clk) // 2]:.0f}/{clk[-1]:.0f} MHz, "
+                f"power {pw[0]:.1f}/{pw[len(pw) // 2]:.1f}/{pw[-1]:.1f} W "
+                f"(min/median/max of {len(rows)} samples)")
+
+
+def _k2_back_to_back(inputs, seconds=2.0):
+    """K2's ms per launch over ``inputs``, launched in order, round after
+    round, back to back for about ``seconds`` (CUDA events); the number of
+    launches; and the clocks sampled meanwhile."""
+    def one_round():
+        for A in inputs:
+            k2.block_ldlt_inv(A)
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    one_round()
+    start.record()
+    one_round()
+    end.record()
+    torch.cuda.synchronize()
+    rounds = max(2, int(seconds / (start.elapsed_time(end) * 1e-3)))
+    clocks = _Clocks()
+    t0 = time.time()
+    start.record()
+    for _ in range(rounds):
+        one_round()
+    end.record()
+    torch.cuda.synchronize()
+    t1 = time.time()
+    n = rounds * len(inputs)
+    return start.elapsed_time(end) / n, n, clocks.stop(t0, t1)
+
+
+def capture_k2_inputs(run):
+    """Every input K2 gets in one ``run()``, in launch order (copies on the
+    same device).  The launches of this run count as usual."""
+    seen = []
+    inner = block_tridiag.block_ldlt_inv
+
+    def keep(A):
+        seen.append(A.clone())
+        return inner(A)
+
+    block_tridiag.block_ldlt_inv = keep
+    try:
+        run()
+    finally:
+        block_tridiag.block_ldlt_inv = inner
+    return seen
 
 
 def _setup(mode, dev):
@@ -105,11 +191,13 @@ def main(mode="hs071"):
 
     from torch.profiler import ProfilerActivity, profile
     launches0 = kernel.launches
-    t0 = time.perf_counter()
+    clocks = _Clocks()
+    t0, w0 = time.perf_counter(), time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         run()
         torch.cuda.synchronize()
     wall_p = time.perf_counter() - t0
+    clocks_solve = clocks.stop(w0, time.time())
     launches = kernel.launches - launches0
     events = [e for e in p.key_averages()
               if str(e.device_type).endswith("CUDA") and _device_us(e) > 0]
@@ -119,12 +207,26 @@ def main(mode="hs071"):
           f"{sum(e.count for e in events)} kernel launches")
     for e in sorted(events, key=lambda e: -_device_us(e))[:12]:
         print(f"  {_device_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    print(f"during the profiled solve: {clocks_solve}")
     mine = [e for e in events if pattern in e.key and "kernel" in e.key]
     if mine and launches:
         t = sum(_device_us(e) for e in mine)
         print(f"{'K2' if mode == 'chained' else 'K1'} device time: "
               f"{t / launches:.2f} us per launch over {launches} launches "
               f"({t / 1e3:.3f} ms in all)")
+    if mode == "chained":
+        g = torch.Generator(device="cpu").manual_seed(0)
+        A = torch.randn((64, 156, 156), generator=g, dtype=torch.float64)
+        A = (A + A.transpose(1, 2) + 312.0 * torch.eye(156, dtype=torch.float64)).to(dev)
+        inputs = capture_k2_inputs(run)
+        first = [X for X in inputs if tuple(X.shape) == (64, 156, 156)]
+        for name, blocks in (
+                ("seeded diagonally dominant blocks, (64, 156, 156)", [A]),
+                (f"the solve's own first-level blocks, {len(first)} x (64, 156, 156)", first),
+                (f"all {len(inputs)} of the solve's inputs, in its order", inputs)):
+            ms, n, clk = _k2_back_to_back(blocks)
+            print(f"K2 back to back on {name}: {ms * 1e3:.2f} us per launch "
+                  f"(CUDA events, {n} launches); {clk}")
 
 
 if __name__ == "__main__":

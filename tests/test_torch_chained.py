@@ -303,9 +303,9 @@ def test_chained_solve_defaults_to_cuda(monkeypatch):
 
 
 def test_chained_restoration_refuses_wide_blocks_on_cuda():
-    """LuksanVlcek1 at v = 32 has mk = 62: its restoration blocks are
-    32 + 4 * 62 = 280 wide, above K2's float64 limit; the refusal comes
-    before any restoration work, and only on CUDA."""
+    """The restoration blocks are v + 4 mk wide: LuksanVlcek1 at v = 32
+    (mk = 62) has 280, which K2 takes in float64 (up to 416); wider ones are
+    refused before any restoration work, and only on CUDA."""
     from ipopt_torch.algorithm.chained_resto import check_resto_block_width
 
     def info(v, mk):
@@ -313,14 +313,15 @@ def test_chained_restoration_refuses_wide_blocks_on_cuda():
                                       f_last=None, eq_mask=np.ones((4, mk), bool))
 
     cuda = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="280-wide"):
-        check_resto_block_width(info(32, 62), torch.float64, cuda)
-    check_resto_block_width(info(32, 62), torch.float64, torch.device("cpu"))
+    check_resto_block_width(info(32, 62), torch.float64, cuda)
+    with pytest.raises(NotImplementedError, match="432-wide"):
+        check_resto_block_width(info(32, 100), torch.float64, cuda)
+    check_resto_block_width(info(32, 100), torch.float64, torch.device("cpu"))
     check_resto_block_width(info(4, 2), torch.float64, cuda)
-    # 192 wide: above the float64 limit, within the float32 one
-    with pytest.raises(NotImplementedError, match="192-wide"):
-        check_resto_block_width(info(32, 40), torch.float64, cuda)
-    check_resto_block_width(info(32, 40), torch.float32, cuda)
+    # 512 wide: above the float64 limit, within the float32 one (576)
+    with pytest.raises(NotImplementedError, match="512-wide"):
+        check_resto_block_width(info(32, 120), torch.float64, cuda)
+    check_resto_block_width(info(32, 120), torch.float32, cuda)
 
 
 @pytest.mark.gpu
