@@ -5,28 +5,36 @@ Phases, in order (any failure exits non-zero before the result line):
 2. the build of every kernel from the sources in this checkout (one nvcc
    per source, all at once);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   its path gives it: K1 at (512, 7, 7) and other block sizes, K2 at every
-   BCR level of the chained path, (64|32|...|1, 156, 156) float64, at
-   b = 1, 8, 16, 32 (one scalar sweep, exactly equal), 33, 48, 280 and 408,
-   and in float32, on seeded quasi-definite blocks;
+   its path gives it: K1 bit for bit (NaN in the same places) at (512, 7, 7)
+   and at b = 1 ... 1024 (``K1_WIDTHS``) in float32 and float64, each stack
+   with a guarded block and a block with an inf entry, timed beside its
+   bound; K2 at every BCR level of the chained path,
+   (64|32|...|1, 156, 156) float64, at b = 1, 8, 16, 32 (one scalar sweep,
+   exactly equal), 33, 48, 280 and 408, and in float32, on seeded
+   quasi-definite blocks;
 4. the HS071 path: ``solve_batched`` on the 512-instance HS071 family in
    float64, with every kernel's launch count set to 0 just before and read
-   just after;
+   just after; then K1 on every input one more warm solve gives it, bit for
+   bit against its plain version, and its device time per launch on those
+   inputs (the kernel's ``ms`` below);
 5. a single ``solve(hs071)`` on the card;
-6. the chained path: ``solve(luksan_vlcek1(4096, 32))`` in float64 (128
+6. the dense path at a size above K1's old limit: ``solve`` of LuksanVlcek1
+   as a plain NLP at n = 100 (KKT 198 wide) on the card, held against the
+   reference's float64 values and the same solve on the CPU;
+7. the chained path: ``solve(luksan_vlcek1(4096, 32))`` in float64 (128
    blocks of 156, block cyclic reduction), cold then warm, the launch counts
    set to 0 before the warm solve and read after it, held against the
    reference's float64 values; and ``luksan_vlcek1(256, 32)`` on the card
    against the same solve on the CPU; then K2 on every input one more warm
    solve gives it, against its plain version, and its time per BCR level on
    those inputs (level 1's is the kernel's ``ms`` below);
-7. the chained restoration: ``hard_chain`` widened to 200 variables per
+8. the chained restoration: ``hard_chain`` widened to 200 variables per
    group (KKT blocks 202 wide, restoration blocks 204), with the launch
    counts set to 0 before and read after, against the same solve on the CPU;
-8. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error,
+9. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error,
    time, the plain version's time and the least time the card could take,
    and K2's launch plan at the first BCR level;
-9. the last line: ``{"ok": true, "device": {...}}``.
+10. the last line: ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the ``ipopt_torch`` package next to it; without
 either it fails.  It imports nothing of JAX.
@@ -108,51 +116,150 @@ def time_cuda(fn, reps=200, warmup=10):
     return start.elapsed_time(end) / reps
 
 
-def check_k1(dev):
-    """K1 against block_ldlt_plain on the card; returns (max abs error at the
-    main-path shape, kernel ms, plain ms, bound ms, bound_by)."""
+def same_values(x, y):
+    """torch.equal with NaN in the same places (and -0.0 equal to +0.0)."""
+    import torch
+    nx, ny = torch.isnan(x), torch.isnan(y)
+    return bool(torch.equal(nx, ny) and torch.equal(torch.where(nx, 0.0, x),
+                                                    torch.where(ny, 0.0, y)))
+
+
+def k1_bound(nb, b, dtype):
+    """(bound ms, bound_by, bytes, ops) of nb LDL^T factorizations of width b:
+    A read, L and d written, against the live triangle's work (a product, a
+    quotient and a difference per entry k < j <= i, a quotient per L entry)."""
+    import torch
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = esize * (2 * nb * b * b + nb * b)
+    ops = nb * sum(3 * s * (s + 1) // 2 + s for s in range(b))
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[str(dtype)[6:]] * 1e3
+    bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    return bound_ms, bound_by, nbytes, ops
+
+
+# K1 is held to its plain version bit for bit at these widths, in float32 and
+# float64, each stack with a guarded block (an exactly zero pivot) and a
+# block with an inf entry.
+K1_WIDTHS = (1, 7, 8, 16, 32, 33, 64, 156, 170, 416, 1024)
+
+
+def k1_blocks(rng, nb, b, dtype):
+    """Seeded KKT-like blocks: block 0 with an exactly zero pivot (the whole
+    block at b = 1), the last block with an inf entry below the diagonal
+    (and its mirror)."""
+    A = kkt_like_blocks(rng, nb, b, dtype)
+    if b == 1:
+        A[0] = 0.0
+    if nb > 1:
+        i, j = b - 1, b // 2
+        A[-1, i, j] = A[-1, j, i] = float("inf")
+    return A
+
+
+def check_k1(dev, card):
+    """K1 against block_ldlt_plain on the card, bit for bit (torch.equal, NaN
+    in the same places), at every width of K1_WIDTHS in both types; its
+    device time at each float64 shape beside its bound.  Returns the seeded
+    (512, 7, 7) float64 timings."""
     import torch
     from ipopt_torch.linalg import block_ldlt as bl
-    from ipopt_torch.linalg.ldlt import _pivot_tols
+    from ipopt_torch.profile_main import device_us_per_launch
     rng = np.random.default_rng(0)
-    cases = [(FAMILY_B, 7, torch.float64), (FAMILY_B, 7, torch.float32)]
-    cases += [(64, b, torch.float64) for b in (1, 16, 32, 64, 156)]
-    main_err = None
-    for nb, b, dtype in cases:
-        A = kkt_like_blocks(rng, nb, b, dtype).to(dev)
+    cases = [(FAMILY_B, 7)] + [(64 if b <= 64 else 16 if b <= 170 else 2, b)
+                               for b in K1_WIDTHS]
+    cases += [(1, 198), (1, 1024)]
+    for dtype in (torch.float64, torch.float32):
+        for nb, b in cases:
+            A = k1_blocks(rng, nb, b, dtype).to(dev)
+            before = bl.block_ldlt.launches
+            L_k, d_k = bl.block_ldlt(A)
+            torch.cuda.synchronize()
+            launched = bl.block_ldlt.launches - before
+            L_p, d_p = bl.block_ldlt_plain(A)
+            torch.cuda.synchronize()
+            ok = launched == 1 and same_values(L_k, L_p) and same_values(d_k, d_p)
+            fin = torch.isfinite(L_p) & torch.isfinite(L_k)
+            err = float(torch.where(fin, L_k - L_p, 0.0).abs().max())
+            pl = bl.plan(nb, b, dtype)
+            line = (f"K1 check nb={nb} b={b} {str(dtype)[6:]}: plan {pl.variant} "
+                    f"rows={pl.rows} lanes={pl.lanes} grid={pl.grid} threads={pl.threads} "
+                    f"shared={pl.smem} B; bit-equal to the plain version "
+                    f"{ok} (max abs err on finite entries {err:.3e}; NaN entries "
+                    f"{int(torch.isnan(L_p).sum())})")
+            if dtype == torch.float64:
+                # timed without the inf block, whose warp or CTA takes the
+                # library division
+                At = A[:-1] if nb > 1 else A
+                us, _ = device_us_per_launch(lambda: bl.block_ldlt(At), "ldlt_",
+                                             rounds=50 if b <= 64 else 10 if b <= 240 else 2)
+                bound_ms, bound_by, _, _ = k1_bound(At.shape[0], b, dtype)
+                line += (f"; {us:.2f} us device time per launch at ({At.shape[0]}, {b}, "
+                         f"{b}), bound {bound_ms * 1e3:.4f} us ({bound_by}), "
+                         f"{us / (bound_ms * 1e3):.1f}x")
+            log(line + f" -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"K1 differs from its plain version at nb={nb} "
+                                 f"b={b} {dtype} (launches {launched})")
+    A = kkt_like_blocks(rng, FAMILY_B, 7, torch.float64).to(dev)
+    ms = time_cuda(lambda: bl.block_ldlt(A))
+    us, n = device_us_per_launch(lambda: bl.block_ldlt(A), "ldlt_", rounds=50)
+    plain_ms = time_cuda(lambda: bl.block_ldlt_plain(A), reps=50)
+    ldl_ms = time_cuda(lambda: torch.linalg.ldl_factor_ex(A), reps=50)
+    log(f"K1 timing (512, 7, 7) float64 on seeded blocks: {us:.2f} us device time per "
+        f"launch (torch.profiler, {n} launches), {ms:.4f} ms per wrapper call, plain "
+        f"{plain_ms:.4f} ms; torch.linalg.ldl_factor_ex (Bunch-Kaufman pivoting, "
+        f"another function: a yardstick only) {ldl_ms:.4f} ms; card {card}")
+    return dict(seeded_us=us, seeded_call_ms=ms, plain_ms=plain_ms, ldl_factor_ms=ldl_ms)
+
+
+def check_k1_on_path(dev, inputs, card):
+    """K1 on every input the warm HS071 solve gave it (captured from one more
+    warm solve: the initial multipliers' (512, 2, 2) system, then the KKT
+    factorizations, (512, 7, 7) or fewer lanes where some have converged),
+    bit-equal to its plain version, and timed on them: device time per
+    launch (torch.profiler) on the (512, 7, 7) inputs, which is the kernel's
+    ms, and on all of them; wrapper time per call."""
+    import torch
+    from ipopt_torch.linalg import block_ldlt as bl
+    from ipopt_torch.linalg.block_ldlt import _safe_pivot
+    from ipopt_torch.profile_main import device_us_per_launch
+    main = [A for A in inputs if tuple(A.shape) == (FAMILY_B, 7, 7)]
+    if not main:
+        raise SystemExit(f"K1 on the path: no (512, 7, 7) input among "
+                         f"{[tuple(A.shape) for A in inputs]}")
+    tiny = torch.finfo(torch.float64).tiny
+    n_guarded = n_slow = 0
+    max_abs_err = 0.0
+    for A in inputs:
         L_k, d_k = bl.block_ldlt(A)
-        torch.cuda.synchronize()
         L_p, d_p = bl.block_ldlt_plain(A)
-        torch.cuda.synchronize()
-        tol = 1e-12 if dtype == torch.float64 else 1e-5
-        err = max(float((L_k - L_p).abs().max()), float((d_k - d_p).abs().max()))
-        scale = max(float(L_p.abs().max()), float(d_p.abs().max()), 1e-300)
-        rel = err / scale
-        zero_tol = _pivot_tols(d_p.abs().amax(-1), dtype, 0.0)[:, None]
-        live = d_p.abs() > zero_tol
-        signs_ok = bool(((torch.sign(d_k) == torch.sign(d_p)) | ~live).all())
-        finite = bool(torch.isfinite(L_k).all() and torch.isfinite(d_k).all())
-        ok = rel <= tol and signs_ok and finite
-        log(f"K1 check nb={nb} b={b} {str(dtype)[6:]}: max_abs_err={err:.3e} "
-            f"rel={rel:.3e} (tol {tol:g}) signs_equal={signs_ok} "
-            f"tiny_pivots={int((~live).sum())} -> {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"K1 disagrees with its plain version at "
-                             f"nb={nb} b={b} {dtype}")
-        if (nb, b, dtype) == (FAMILY_B, 7, torch.float64):
-            main_err = err
-            A_main = A
-    ms = time_cuda(lambda: bl.block_ldlt(A_main))
-    plain_ms = time_cuda(lambda: bl.block_ldlt_plain(A_main), reps=50)
-    nb, b = FAMILY_B, 7
-    nbytes = 8 * (nb * b * b + nb * b * b + nb * b)  # A read, L and d written
-    ops = nb * sum(3 * j * j + j for j in range(b))  # mul/div/sub + L divides
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S["float64"] * 1e3
-    bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
-    log(f"K1 timing (512, 7, 7) float64: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {ops} ops)")
-    return main_err, ms, plain_ms, bound_ms, bound_by
+        if not (same_values(L_k, L_p) and same_values(d_k, d_p)):
+            raise SystemExit(f"K1 on the path: an input of {tuple(A.shape)} where "
+                             f"the kernel differs from its plain version")
+        for x, y in ((L_k, L_p), (d_k, d_p)):
+            fin = torch.isfinite(x) & torch.isfinite(y)
+            max_abs_err = max(max_abs_err, float(torch.where(fin, x - y, 0.0).abs().max()))
+        n_guarded += int((~(d_p.abs() > tiny)).sum())
+        sp = _safe_pivot(d_p)
+        pow2 = torch.frexp(sp)[0].abs() == 0.5
+        n_slow += int((((sp.abs() < 2.0 ** -100) | (sp.abs() > 2.0 ** 100)) & ~pow2).sum())
+    us, n = device_us_per_launch(lambda: [bl.block_ldlt(A) for A in main], "ldlt_",
+                                 rounds=20)
+    us_all, n_all = device_us_per_launch(lambda: [bl.block_ldlt(A) for A in inputs],
+                                         "ldlt_", rounds=20)
+    call_ms = time_cuda(lambda: [bl.block_ldlt(A) for A in main], reps=20) / len(main)
+    bound_ms, bound_by, nbytes, ops = k1_bound(FAMILY_B, 7, torch.float64)
+    log(f"K1 on the path: {len(inputs)} inputs from the warm HS071 solve "
+        f"({[tuple(A.shape) for A in inputs]}), each bit-equal to the plain version; "
+        f"{n_guarded} guarded pivots, {n_slow} other pivots outside the certificate's "
+        f"range; {us:.2f} us device time per launch on the {len(main)} (512, 7, 7) "
+        f"inputs (torch.profiler, {n} launches), {us_all:.2f} us on all {len(inputs)} "
+        f"({n_all} launches); {call_ms:.4f} ms per wrapper call; bound {bound_ms:.6f} "
+        f"ms ({bound_by}: {nbytes} B, {ops} ops); criterion <= 5 us per launch at "
+        f"(512, 7, 7): {'met' if us <= 5.0 else 'not met'}; card {card}")
+    return dict(max_abs_err=max_abs_err, ms=us * 1e-3, all_inputs_ms=us_all * 1e-3,
+                call_ms=call_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def gj_flops(nb, b):
@@ -479,6 +586,47 @@ def chained_path(dev, opts, card):
     return k2_launches, inputs
 
 
+# A dense NLP whose augmented KKT is 198 wide, above the 169 at which a whole
+# b x b float64 block stops fitting one CTA's shared memory: LuksanVlcek1 as a plain NLP
+# (tests/problems.py:146) at n = 100.  Reference values:
+# ipopt_tpu.solve(problems.luksan_vlcek1(100)) in float64 on the CPU, with the
+# options of bench.py:74-80, at commit 3aa5258: status 0, 6 iterations,
+# objective below.
+LV1D_N, LV1D_STATUS, LV1D_ITERS = 100, 0, 6
+LV1D_OBJ = 6.2324586324464475
+
+
+def dense_path(dev, opts, card):
+    """solve(luksan_vlcek1_dense(100)) on the card, with K1's launch count set
+    to 0 before and read after, against the reference's values and the same
+    solve on the CPU."""
+    import ipopt_torch
+    from ipopt_torch import modellib
+    from ipopt_torch.linalg import block_ldlt as bl
+    import torch
+    prob = modellib.luksan_vlcek1_dense(LV1D_N)
+    bl.block_ldlt.launches = 0
+    t0 = time.perf_counter()
+    r_card = ipopt_torch.solve(prob, device=dev, **opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = bl.block_ldlt.launches
+    r_cpu = ipopt_torch.solve(prob, device="cpu", **opts)
+    got = [(int(r.status), int(r.iter_count), float(r.obj)) for r in (r_card, r_cpu)]
+    rel = [abs(o - LV1D_OBJ) / abs(LV1D_OBJ) for _, _, o in got]
+    pl = bl.plan(1, 2 * LV1D_N - 2, torch.float64)
+    log(f"dense path: solve(luksan_vlcek1_dense({LV1D_N})) float64, KKT "
+        f"{2 * LV1D_N - 2} wide (K1 plan {pl.variant}, {pl.smem} B shared): card "
+        f"(status, iterations, objective) {got[0]} in {wall:.3f} s, CPU {got[1]}, "
+        f"reference ({LV1D_STATUS}, {LV1D_ITERS}, {LV1D_OBJ!r}); rel diff card "
+        f"{rel[0]:.2e}, CPU {rel[1]:.2e} (tol 1e-9); K1 launches {launches}; card {card}")
+    for (status, iters, _), r in zip(got, rel):
+        if status != LV1D_STATUS or iters != LV1D_ITERS or r > 1e-9:
+            raise SystemExit("dense path: the card or the CPU differs from the reference")
+    if launches == 0:
+        raise SystemExit("dense path: K1 was not launched")
+
+
 # The chained restoration on the card: "hard_chain" of
 # tests/test_torch_chained.py (x_{k+1}[0] = x_k[0]^2 from x0 = -3), widened
 # to v = 200 variables per group, so its KKT blocks are 202 wide and its
@@ -571,7 +719,7 @@ def main():
         raise SystemExit("K2 has no DMMA instruction")
 
     # 3. kernels against their plain versions
-    main_err, k_ms, plain_ms, bound_ms, bound_by = check_k1(dev)
+    k1_stats = check_k1(dev, card)
     k2_stats = check_k2(dev)
 
     # 4. the main path: canonicalize + stack on the host (set-up), then solve
@@ -621,6 +769,11 @@ def main():
         raise SystemExit(f"main path: iteration counts {iters[:8].tolist()} differ "
                          f"from the CPU solve {ref.iter_count.tolist()}")
     log(f"main path: first 8 iteration counts {iters[:8].tolist()} equal the CPU solve")
+    from ipopt_torch.profile_main import capture_k1_inputs
+    k1_inputs = capture_k1_inputs(
+        lambda: ipopt_torch.solve_batched(nlp_b, device=dev, **opts))
+    k1_stats.update(check_k1_on_path(dev, k1_inputs, card))
+    del k1_inputs
 
     # 5. one solve on the card
     r1 = ipopt_torch.solve(modellib.hs071(), device=dev, print_level=0)
@@ -629,21 +782,23 @@ def main():
     if int(r1.status) != 0 or int(r1.iter_count) != 8 or abs(float(r1.obj) - F_STAR) > 1e-7:
         raise SystemExit("solve(hs071) on the card failed")
 
-    # 6. the chained path
+    # 6. a dense KKT above the old one-CTA limit of K1
+    dense_path(dev, opts, card)
+
+    # 7. the chained path
     k2_launches, k2_inputs = chained_path(dev, opts, card)
     k2_stats.update(check_k2_on_path(dev, k2_inputs, card))
     del k2_inputs
 
-    # 7. the chained restoration at 204-wide blocks
+    # 8. the chained restoration at 204-wide blocks
     restoration_path(dev, card)
 
-    # 8. kernels line, 9. result line
+    # 9. kernels line, 10. result line
     print(json.dumps({"kernels": [{
         "name": "block_ldlt", "route": "cuda",
         "source": "ipopt_torch/csrc/block_ldlt.cu",
         "replaces": "ipopt_tpu/linalg/pallas_ldlt.py:26",
-        "launches": launches, "max_abs_err": main_err, "ms": k_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "launches": launches, **k1_stats,
         "library_ms": None}, {
         "name": "block_ldlt_inv", "route": "cuda",
         "source": "ipopt_torch/csrc/block_ldlt_inv.cu",

@@ -47,8 +47,8 @@ PANEL = 32
 # The kernel's clusters stay within the portable size, so no launch needs
 # cudaFuncAttributeNonPortableClusterSizeAllowed.
 MAX_CLUSTER = 8
-# SMs of an H100 SXM: the plan widens clusters while the launch fits them.
-NUM_SMS = 132
+# The plan widens clusters while the launch fits the SMs.
+NUM_SMS = cuda_lib.NUM_SMS
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,

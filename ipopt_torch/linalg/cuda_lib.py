@@ -2,7 +2,8 @@
 
 Every ``csrc/*.cu`` has a plain C interface and becomes its own shared
 library, ``_build/<hash>/lib<name>.so``, loaded with ctypes.  The hash covers
-all the sources and the flags, so a change to any kernel rebuilds them all.
+all the sources, the headers they share (``csrc/*.cuh``) and the flags, so a
+change to any of them rebuilds every kernel.
 ``build()`` starts one nvcc per source, all at once, and waits for them; it
 runs at the first launch of any kernel (or ahead of it, as ``chip_smoke.py``
 does) and keeps each compiler's report (registers, shared memory) in
@@ -20,11 +21,14 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu"))))
+# Headers the sources include: the build hash covers them too.
+HEADERS = tuple(sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cuh"))))
 BUILD_ROOT = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# Shared memory one CTA can use on Hopper (bytes).
+# Shared memory one CTA can use on Hopper (bytes), and the SMs of an H100 SXM.
 SMEM_BYTES = 232448
+NUM_SMS = 132
 
 _libs = {}
 _lock = threading.Lock()
@@ -50,7 +54,7 @@ def _name(src: str) -> str:
 
 def build_dir() -> str:
     h = hashlib.sha256()
-    for path in SOURCES:
+    for path in SOURCES + HEADERS:
         with open(path, "rb") as fh:
             h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -102,13 +106,3 @@ def load(name: str, functions: dict) -> ctypes.CDLL:
             _libs[name] = lib
         return lib
 
-
-def max_block(dtype_bytes: int, extra_vectors: int) -> int:
-    """Largest b with b*b + extra_vectors*b elements of ``dtype_bytes`` in one
-    CTA's shared memory."""
-    cap = SMEM_BYTES // dtype_bytes
-    e = extra_vectors
-    b = int(((e * e + 4 * cap) ** 0.5 - e) / 2)
-    while b * b + e * b > cap:
-        b -= 1
-    return b

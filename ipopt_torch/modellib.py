@@ -1,5 +1,6 @@
 """Model library of the port: the HS071 problem and the family the batched
-benchmark solves (``bench.py:121-133``), and the chained LuksanVlcek1 and
+benchmark solves (``bench.py:121-133``), LuksanVlcek1 as a plain NLP for the
+dense backend (``tests/problems.py:146``), and the chained LuksanVlcek1 and
 1-D boundary-control problems (``bench.py:302-314``, ``tests/test_chained.py``).
 Port of the part of ``ipopt_tpu/modellib.py`` on the ported paths; the other
 models come with the slices that use them.
@@ -51,6 +52,14 @@ def _rosen(w):
     return (100.0 * (w[:-1] ** 2 - w[1:]) ** 2 + (w[:-1] - 1.0) ** 2).sum()
 
 
+def _lv1_g(x):
+    """The equalities with leading index 0..len(x)-3 (constraint j couples
+    x_j, x_{j+1}, x_{j+2})."""
+    a, b, c = x[:-2], x[1:-1], x[2:]
+    return (3.0 * b ** 3 + 2.0 * c - 5.0 + torch.sin(b - c) * torch.sin(b + c)
+            + 4.0 * b - a * torch.exp(a - b) - 3.0)
+
+
 def _lv1_f_stage(xk, xk1, theta):
     return _rosen(torch.cat([xk, xk1[:1]]))
 
@@ -61,10 +70,19 @@ def _lv1_f_last(xK):
 
 def _lv1_g_stage(xk, xk1, theta):
     # rows with leading index j = k*v + i, i = 0..2v-3, over the 2v window
-    w = torch.cat([xk, xk1])
-    a, b, c = w[:-2], w[1:-1], w[2:]
-    return (3.0 * b ** 3 + 2.0 * c - 5.0 + torch.sin(b - c) * torch.sin(b + c)
-            + 4.0 * b - a * torch.exp(a - b) - 3.0)
+    return _lv1_g(torch.cat([xk, xk1]))
+
+
+def luksan_vlcek1_dense(n: int) -> NLP:
+    """LuksanVlcek1 as one plain NLP (``tests/problems.py:146-169``): n
+    variables, n - 2 equalities, no declared structure, so the dense backend
+    factors its whole augmented KKT, 2n - 2 wide (198 at n = 100)."""
+    if n < 3:
+        raise ValueError(f"need n >= 3, got {n}")
+    x0 = np.full(n, -1.0)
+    x0[1::2] = 1.0
+    return NLP(f=_rosen, g=_lv1_g, g_L=np.zeros(n - 2), g_U=np.zeros(n - 2),
+               x0=x0, name=f"luksan_vlcek1_dense{n}")
 
 
 def luksan_vlcek1(n: int, v: int = 2) -> ChainedNLP:

@@ -14,12 +14,13 @@ with the options of ``bench.py:74-80``: once to warm up, then once under
 - device time: busy total, idle share of the wall, the kernels with the most
   device time, and the path's kernel's device time per launch (K1
   ``block_ldlt`` or K2 ``block_ldlt_inv``);
-- for the chained path, K2's time per launch back to back (CUDA events):
-  on seeded (64, 156, 156) blocks, on the solve's own first-level blocks,
-  and on every input the solve gave it, in the solve's order, beside its
-  device time per launch inside the solve; with the SM clock and power
-  draw that ``nvidia-smi`` sampled every 50 ms inside each window (about
-  2 s of launches back to back).
+- the path's kernel back to back (CUDA events) on every input the solve
+  gave it, in the solve's order, beside its device time per launch inside
+  the solve: for HS071, K1's time per wrapper call and its device time per
+  launch (torch.profiler) on those inputs; for the chained path, K2 also on
+  seeded (64, 156, 156) blocks and on the solve's own first-level blocks;
+  with the SM clock and power draw that ``nvidia-smi`` sampled every 50 ms
+  inside each window (about 2 s of calls back to back).
 It needs a CUDA device.
 """
 from __future__ import annotations
@@ -37,6 +38,7 @@ from . import Options, canonicalize_chained, modellib, solve, solve_batched, sta
 from .linalg import block_ldlt as bl
 from .linalg import block_ldlt_inv as k2
 from .linalg import block_tridiag
+from .linalg import ldlt as ldlt_mod
 
 BATCH = 512
 OPTS = dict(tol=1e-8, acceptable_tol=1e-6, acceptable_iter=10, print_level=0)
@@ -88,13 +90,14 @@ class _Clocks:
                 f"(min/median/max of {len(rows)} samples)")
 
 
-def _k2_back_to_back(inputs, seconds=2.0):
-    """K2's ms per launch over ``inputs``, launched in order, round after
-    round, back to back for about ``seconds`` (CUDA events); the number of
-    launches; and the clocks sampled meanwhile."""
+def _back_to_back(kernel, inputs, seconds=2.0):
+    """``kernel``'s ms per call over ``inputs``, called in order, round after
+    round, back to back for about ``seconds`` (CUDA events; a call whose host
+    cost exceeds its device time measures the host); the number of calls;
+    and the clocks sampled meanwhile."""
     def one_round():
         for A in inputs:
-            k2.block_ldlt_inv(A)
+            kernel(A)
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     one_round()
@@ -115,22 +118,47 @@ def _k2_back_to_back(inputs, seconds=2.0):
     return start.elapsed_time(end) / n, n, clocks.stop(t0, t1)
 
 
-def capture_k2_inputs(run):
-    """Every input K2 gets in one ``run()``, in launch order (copies on the
-    same device).  The launches of this run count as usual."""
+def device_us_per_launch(fn, pattern, rounds=5):
+    """Device time (us) per kernel launch whose name holds ``pattern``, from
+    torch.profiler over ``rounds`` calls of ``fn``, and the launch count."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        for _ in range(rounds):
+            fn()
+        torch.cuda.synchronize()
+    mine = [e for e in p.key_averages() if pattern in e.key and _device_us(e) > 0]
+    n = sum(e.count for e in mine)
+    return (sum(_device_us(e) for e in mine) / n if n else float("nan")), n
+
+
+def _capture(module, name, run):
+    """Every input ``module.name`` gets in one ``run()``, in call order
+    (copies on the same device).  The launches of this run count as usual."""
     seen = []
-    inner = block_tridiag.block_ldlt_inv
+    inner = getattr(module, name)
 
     def keep(A):
         seen.append(A.clone())
         return inner(A)
 
-    block_tridiag.block_ldlt_inv = keep
+    setattr(module, name, keep)
     try:
         run()
     finally:
-        block_tridiag.block_ldlt_inv = inner
+        setattr(module, name, inner)
     return seen
+
+
+def capture_k1_inputs(run):
+    """Every input K1 gets from the dense backend in one ``run()``."""
+    return _capture(ldlt_mod, "block_ldlt", run)
+
+
+def capture_k2_inputs(run):
+    """Every input K2 gets from the block cyclic reduction in one ``run()``."""
+    return _capture(block_tridiag, "block_ldlt_inv", run)
 
 
 def _setup(mode, dev):
@@ -224,9 +252,19 @@ def main(mode="hs071"):
                 ("seeded diagonally dominant blocks, (64, 156, 156)", [A]),
                 (f"the solve's own first-level blocks, {len(first)} x (64, 156, 156)", first),
                 (f"all {len(inputs)} of the solve's inputs, in its order", inputs)):
-            ms, n, clk = _k2_back_to_back(blocks)
+            ms, n, clk = _back_to_back(k2.block_ldlt_inv, blocks)
             print(f"K2 back to back on {name}: {ms * 1e3:.2f} us per launch "
                   f"(CUDA events, {n} launches); {clk}")
+    else:
+        inputs = capture_k1_inputs(run)
+        shapes = sorted({tuple(A.shape) for A in inputs})
+        ms, n, clk = _back_to_back(bl.block_ldlt, inputs)
+        us, n_dev = device_us_per_launch(
+            lambda: [bl.block_ldlt(A) for A in inputs], pattern)
+        print(f"K1 back to back on the solve's {len(inputs)} inputs {shapes}: "
+              f"{ms * 1e3:.2f} us per wrapper call (CUDA events, {n} calls; the "
+              f"host's cost per call included); {us:.2f} us device time per launch "
+              f"(torch.profiler, {n_dev} launches); {clk}")
 
 
 if __name__ == "__main__":

@@ -1,9 +1,12 @@
 """K1 of the PyTorch port (ipopt_torch/linalg/block_ldlt.py) against the
-reference: the Pallas kernel in interpret mode and the vmapped ldlt.
+reference: the Pallas kernel in interpret mode and the vmapped ldlt; its
+launch plan; the dense backend at a KKT width above the kernel's old limit.
 
 Tolerances: float64 atol 1e-12 (the arithmetic is the same step for step,
 so only the order of rounding may differ); float32 rtol 1e-5; pivot signs
-and inertia counts exactly equal.
+and inertia counts exactly equal; NaN in the same places.  On the card the
+kernel equals its plain version bit for bit (torch.equal, NaN in the same
+places).
 """
 import numpy as np
 import pytest
@@ -14,8 +17,11 @@ import jax.numpy as jnp
 from ipopt_tpu.linalg.pallas_ldlt import pallas_block_ldlt
 from ipopt_tpu.linalg import ldlt as ref_ldlt
 
+import ipopt_torch
+from ipopt_torch import modellib
+from ipopt_torch.linalg import cuda_lib
 from ipopt_torch.linalg import ldlt as port_ldlt
-from ipopt_torch.linalg.block_ldlt import block_ldlt, block_ldlt_plain
+from ipopt_torch.linalg.block_ldlt import block_ldlt, block_ldlt_plain, plan
 
 torch.set_num_threads(1)
 
@@ -101,14 +107,133 @@ def test_wrapper_cpu_path_and_bad_inputs():
         block_ldlt(A.to("meta"))
 
 
+def special_blocks(kind, dtype):
+    """Blocks that reach the guard or non-finite arithmetic: exactly zero
+    pivots (a zero block, a zero row and column, a zero leading pivot) and a
+    block with an inf entry (its mirror too); or one 170-wide block."""
+    rng = np.random.default_rng(17)
+    if kind == "wide":
+        return kkt_like(rng, 1, 170).astype(dtype)
+    A = kkt_like(rng, 4, 9)
+    if kind == "zero_pivots":
+        A[1] = 0.0
+        A[2, 0, :] = A[2, :, 0] = 0.0
+        A[3, 4, :] = A[3, :, 4] = 0.0
+        A[3, 7, :] = A[3, :, 7] = 0.0
+    else:
+        A[1, 6, 2] = A[1, 2, 6] = np.inf
+        A[2, 3, 3] = -np.inf
+    return A.astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("kind", ["zero_pivots", "inf_entry", "wide"])
+def test_plain_matches_reference_on_special_blocks(kind, dtype):
+    A = special_blocks(kind, dtype)
+    L_pl, d_pl = pallas_block_ldlt(jnp.asarray(A), interpret=True)
+    ref = jax.vmap(ref_ldlt.ldlt)(jnp.asarray(A))
+    L, d = block_ldlt_plain(torch.as_tensor(A))
+    L, d = L.numpy(), d.numpy()
+    if kind == "inf_entry":
+        assert np.isnan(L).any()
+    for L_r, d_r in ((np.asarray(L_pl), np.asarray(d_pl)),
+                     (np.asarray(ref.L), np.asarray(ref.d))):
+        np.testing.assert_array_equal(np.isnan(L), np.isnan(L_r))
+        np.testing.assert_array_equal(np.isnan(d), np.isnan(d_r))
+        if dtype == "float64":
+            np.testing.assert_allclose(L, L_r, rtol=0, atol=1e-12)
+            np.testing.assert_allclose(d, d_r, rtol=0, atol=1e-12)
+        else:
+            fin = np.isfinite(L_r)
+            scale = max(np.abs(L_r[fin]).max(), np.abs(d_r[np.isfinite(d_r)]).max())
+            np.testing.assert_allclose(L, L_r, rtol=1e-5, atol=1e-5 * scale)
+            np.testing.assert_allclose(d, d_r, rtol=1e-5, atol=1e-5 * scale)
+    if kind == "zero_pivots":
+        tiny = np.finfo(dtype).tiny
+        assert (np.abs(d) <= tiny).sum() >= 4  # the guard fired in blocks 1-3
+        fin = port_ldlt._finish(torch.as_tensor(L), torch.as_tensor(d), 0.0)
+        np.testing.assert_array_equal(fin.num_zero.numpy(), np.asarray(ref.num_zero))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_launch_plan_covers_every_width(dtype):
+    esize = torch.finfo(dtype).bits // 8
+    seen = set()
+    for b in range(1, 4097):
+        for nb in (1, 3, 512):
+            pl = plan(nb, b, dtype)
+            seen.add(pl.variant)
+            assert 0 <= pl.smem <= cuda_lib.SMEM_BYTES
+            assert 32 <= pl.threads <= 1024 and pl.threads % 32 == 0
+            if pl.variant == "warp":
+                assert b <= pl.rows <= 32 and pl.rows & (pl.rows - 1) == 0
+                assert pl.lanes == min(32, 2 * pl.rows)
+                per_cta = (pl.threads // 32) * (32 // pl.lanes)
+                assert pl.grid * per_cta >= nb > (pl.grid - 1) * per_cta
+                assert pl.smem == per_cta * b * b * esize
+            else:
+                assert b > 32 and pl.grid == nb
+                tri = b * (b + 1) // 2 * esize
+                assert (pl.variant == "cta") == (tri <= cuda_lib.SMEM_BYTES)
+                assert pl.smem == (tri if pl.variant == "cta" else 0)
+    assert seen == {"warp", "cta", "global"}
+    top = max(b for b in range(33, 4097) if plan(1, b, dtype).variant == "cta")
+    assert top == (240 if dtype == torch.float64 else 340)
+    # (512, 7, 7): two lanes per row, two blocks per warp, two warps per CTA
+    # on 128 SMs
+    assert plan(512, 7, dtype)[:5] == ("warp", 8, 16, 128, 64)
+
+
+# ipopt_tpu.solve(tests/problems.py::luksan_vlcek1(100)) in float64 on the
+# CPU, options of bench.py:74-80, at commit 3aa5258: status 0, 6 iterations.
+LV1_DENSE_OBJ = 6.2324586324464475
+
+
+def test_dense_kkt_wider_than_the_old_kernel_limit():
+    """The dense backend factors the 198-wide augmented KKT of LuksanVlcek1
+    at n = 100 and ends where the reference's float64 solve ends."""
+    calls = port_ldlt.ldlt.calls
+    res = ipopt_torch.solve(modellib.luksan_vlcek1_dense(100), device="cpu",
+                            tol=1e-8, acceptable_tol=1e-6, acceptable_iter=10,
+                            print_level=0)
+    assert port_ldlt.ldlt.calls > calls
+    assert (int(res.status), int(res.iter_count)) == (0, 6)
+    assert abs(float(res.obj) - LV1_DENSE_OBJ) <= 1e-9 * LV1_DENSE_OBJ
+
+
+def test_capture_k1_inputs_sees_every_factorization():
+    from ipopt_torch.profile_main import capture_k1_inputs
+    calls = port_ldlt.ldlt.calls
+    res = []
+    inputs = capture_k1_inputs(lambda: res.append(ipopt_torch.solve_batched(
+        [modellib.hs071_family(0.005 * i) for i in range(2)], device="cpu",
+        print_level=0)))
+    assert len(inputs) == port_ldlt.ldlt.calls - calls == res[0].batched_factorizations
+    assert tuple(inputs[0].shape) == (2, 2, 2)  # the initial multipliers' system
+    assert all(tuple(A.shape[1:]) == (7, 7) for A in inputs[1:])
+    assert port_ldlt.block_ldlt is block_ldlt  # restored after the run
+
+
+def same_values(x, y):
+    nx, ny = torch.isnan(x), torch.isnan(y)
+    return torch.equal(nx, ny) and torch.equal(torch.where(nx, 0.0, x),
+                                               torch.where(ny, 0.0, y))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b", [7, 64])
-def test_kernel_matches_plain_on_cuda(cuda, b):
-    A = torch.as_tensor(kkt_like(np.random.default_rng(b), 512, b), device=cuda)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nb, b", [(512, 7), (9, 1), (7, 32), (64, 64), (5, 241),
+                                   (3, 341), (1, 1024)])
+def test_kernel_matches_plain_on_cuda(cuda, nb, b, dtype):
+    """Every variant (warp, cta, global) bit for bit, with a guarded block
+    (block 0) and a block with an inf entry (the last)."""
+    A = kkt_like(np.random.default_rng(b), nb, b)
+    if nb > 1:
+        A[-1, b - 1, b // 2] = A[-1, b // 2, b - 1] = np.inf
+    A = torch.as_tensor(A, dtype=dtype, device=cuda)
     before = block_ldlt.launches
     L, d = block_ldlt(A)
     torch.cuda.synchronize()
     assert block_ldlt.launches == before + 1
     L_p, d_p = block_ldlt_plain(A)
-    torch.testing.assert_close(L, L_p, rtol=0, atol=1e-12)
-    torch.testing.assert_close(d, d_p, rtol=0, atol=1e-12)
+    assert same_values(L, L_p) and same_values(d, d_p)
