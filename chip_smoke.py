@@ -5,18 +5,20 @@ Phases, in order (any failure exits non-zero before the result line):
 2. the build of every kernel from the sources in this checkout (one nvcc
    per source, all at once);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   its path gives it: K1 bit for bit (NaN in the same places) at (512, 7, 7)
+   its paths give it: K1 bit for bit (NaN in the same places) at (512, 7, 7)
    and at b = 1 ... 1024 (``K1_WIDTHS``) in float32 and float64, each stack
    with a guarded block and a block with an inf entry, timed beside its
    bound; K2 at every BCR level of the chained path,
    (64|32|...|1, 156, 156) float64, at b = 1, 8, 16, 32 (one scalar sweep,
-   exactly equal), 33, 48, 280 and 408, and in float32, on seeded
-   quasi-definite blocks;
+   exactly equal), 33, 48, 280 and 408, in float32, and above the cluster
+   variant's widths (the device-memory variant) at b = 417, 496, 568, 1288
+   in float64 and 577, 1288 in float32, on seeded quasi-definite blocks,
+   timed beside the bound;
 4. the HS071 path: ``solve_batched`` on the 512-instance HS071 family in
    float64, with every kernel's launch count set to 0 just before and read
    just after; then K1 on every input one more warm solve gives it, bit for
    bit against its plain version, and its device time per launch on those
-   inputs (the kernel's ``ms`` below);
+   inputs (K1's ``ms`` below);
 5. a single ``solve(hs071)`` on the card;
 6. the dense path at a size above K1's old limit: ``solve`` of LuksanVlcek1
    as a plain NLP at n = 100 (KKT 198 wide) on the card, held against the
@@ -24,17 +26,27 @@ Phases, in order (any failure exits non-zero before the result line):
 7. the chained path: ``solve(luksan_vlcek1(4096, 32))`` in float64 (128
    blocks of 156, block cyclic reduction), cold then warm, the launch counts
    set to 0 before the warm solve and read after it, held against the
-   reference's float64 values; and ``luksan_vlcek1(256, 32)`` on the card
-   against the same solve on the CPU; then K2 on every input one more warm
-   solve gives it, against its plain version, and its time per BCR level on
-   those inputs (level 1's is the kernel's ``ms`` below);
-8. the chained restoration: ``hard_chain`` widened to 200 variables per
-   group (KKT blocks 202 wide, restoration blocks 204), with the launch
-   counts set to 0 before and read after, against the same solve on the CPU;
-9. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error,
-   time, the plain version's time and the least time the card could take,
-   and K2's launch plan at the first BCR level;
-10. the last line: ``{"ok": true, "device": {...}}``.
+   reference's float64 values; ``luksan_vlcek1(256, 32)`` on the card
+   against the same solve on the CPU; K2 on every input one more warm solve
+   gives it, against its plain version, timed per BCR level; and
+   ``luksan_vlcek1(1000, 100)`` (496-wide blocks: K2's device-memory
+   variant) against the reference's values;
+8. the chained restoration: ``hard_chain`` widened to 200 and 500 variables
+   per group (restoration blocks 204 and 504 wide), with the launch counts
+   set to 0 before and read after, against the same solve on the CPU;
+9. this slice's main path, the banded backend: ``solve(luksan_vlcek1_flat(
+   100_000), linear_solver="banded-bcr")`` (12,500 blocks of 16), cold then
+   warm, counts from 0 before the warm solve, held against the reference's
+   values (K2 launched 15 times per factorization, K1 never);
+   ``luksan_vlcek1_flat(2000)`` on the card against the CPU; K2 on every
+   input one more warm solve gives it, against its plain version, timed per
+   level (level 1's time is K2's ``ms`` below); then
+   ``mittelmann_dist_control(100)`` (76 blocks of 408) and the banded
+   restoration (an infeasible chain, card against CPU);
+10. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error,
+   time, the plain version's and the library call's time and the least time
+   the card could take, K2's numbers per path and its launch plans;
+11. the last line: ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the ``ipopt_torch`` package next to it; without
 either it fails.  It imports nothing of JAX.
@@ -64,6 +76,13 @@ LV1_STATUS, LV1_ITERS, LV1_FACTORIZATIONS = 0, 7, 21
 LV1_OBJ = 6.2324586324370905
 # K2 launches per BCR factorization of 128 blocks: 7 levels and the root.
 LV1_K2_PER_FACTORIZATION = 8
+# K2 widths above the cluster variant's (416 in float64, 576 in float32):
+# the device-memory variant; 1288 is Mittelmann N = 100's restoration.
+GLOBAL_WIDTHS_F64 = (417, 496, 568, 1288)
+GLOBAL_WIDTHS_F32 = (577, 1288)
+# K2's first BCR level on the banded configurations (nb, b): LuksanVlcek1
+# flat 1e5 and its restoration NLP, Mittelmann N = 100 and its restoration.
+BANDED_STACKS = ((6250, 16), (8333, 24), (38, 408), (20, 1288))
 
 
 def log(msg):
@@ -323,7 +342,11 @@ def check_k2(dev):
     cases += [(4, 280, torch.float64, quasi_definite_blocks),
               (2, 408, torch.float64, quasi_definite_blocks),
               (64, b_main, torch.float32, quasi_definite_blocks)]
+    # above the cluster variant's widths: the device-memory variant
+    cases += [(2, b, torch.float64, quasi_definite_blocks) for b in GLOBAL_WIDTHS_F64]
+    cases += [(2, b, torch.float32, quasi_definite_blocks) for b in GLOBAL_WIDTHS_F32]
     main_err = 0.0
+    global_ms = {}
     for nb, b, dtype, make in cases:
         A = make(rng, nb, b, dtype).to(dev)
         d_k, inv_k = k2.block_ldlt_inv(A)
@@ -347,34 +370,70 @@ def check_k2(dev):
         finite = bool(torch.isfinite(inv_k).all() and torch.isfinite(d_k).all())
         ok = rel_inv <= tol_inv and d_ok and signs_ok and finite
         pl = k2.plan(nb, b, dtype)
-        ms = time_cuda(lambda: k2.block_ldlt_inv(A), reps=20, warmup=3)
-        log(f"K2 check nb={nb} b={b} {str(dtype)[6:]} ({make.__name__}): plan cs={pl.cs} "
-            f"strip rows={list(pl.rows)} shared={pl.smem} B; max_abs_err "
+        ms = time_cuda(lambda: k2.block_ldlt_inv(A), reps=5 if b > 1000 else 20, warmup=2)
+        bound_ms, bound_by, _, _ = k2_bound(nb, b, dtype)
+        if pl.variant == "global":
+            global_ms[f"{b}_{str(dtype)[6:]}"] = dict(ms=ms, bound_ms=bound_ms,
+                                                     bound_by=bound_by, nb=nb)
+        log(f"K2 check nb={nb} b={b} {str(dtype)[6:]} ({make.__name__}): plan {pl.variant} "
+            f"cs={pl.cs} strip rows={list(pl.rows)} shared={pl.smem} B; max_abs_err "
             f"Ainv={err_inv:.3e} (rel {rel_inv:.3e}) d={err_d:.3e} (rel {rel_d:.3e}) "
             f"({why}) signs_equal={signs_ok} tiny_pivots={int((~live).sum())} "
             f"max|A Ainv - I| on {int(nonsingular.sum())} nonsingular blocks={resid:.3e}; "
-            f"{ms:.4f} ms per launch -> {'ok' if ok else 'FAIL'}")
+            f"{ms:.4f} ms per launch, bound {bound_ms:.6f} ms ({bound_by}) -> "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"K2 disagrees with its plain version at "
                              f"nb={nb} b={b} {dtype} ({make.__name__})")
         if (nb, b, dtype, make) in main:
             main_err = max(main_err, err_inv, err_d)
+    # the first BCR levels of the banded configurations, on seeded blocks:
+    # LuksanVlcek1 flat 1e5 (6250 x 16) and its restoration NLP (8333 x 24),
+    # Mittelmann N = 100 (38 x 408) and its restoration NLP (20 x 1288)
+    banded_stacks = {}
+    for nb, b in BANDED_STACKS:
+        A = quasi_definite_blocks(rng, nb, b, torch.float64, tiny_block=False).to(dev)
+        d_k, inv_k = k2.block_ldlt_inv(A)
+        d_p, inv_p = k2.block_ldlt_inv_plain(A)
+        tol_inv, tol_d, _ = k2_tolerance(b, torch.float64)
+        rel_inv = float((inv_k - inv_p).abs().max()) / max(1.0, float(inv_p.abs().max()))
+        rel_d = float(((d_k - d_p).abs() / d_p.abs()).max())
+        pl = k2.plan(nb, b, torch.float64)
+        ms = time_cuda(lambda: k2.block_ldlt_inv(A), reps=5 if b > 1000 else 20, warmup=2)
+        plain_ms = time_cuda(lambda: k2.block_ldlt_inv_plain(A), reps=2, warmup=1)
+        inv_ms = time_cuda(lambda: torch.linalg.inv_ex(A), reps=5, warmup=1)
+        bound_ms, bound_by, nbytes, ops = k2_bound(nb, b)
+        ok = rel_inv <= tol_inv and rel_d <= tol_d
+        log(f"K2 banded stack ({nb}, {b}, {b}) float64, seeded: plan {pl.variant} "
+            f"cs={pl.cs} shared={pl.smem} B; rel err Ainv {rel_inv:.3e}, d {rel_d:.3e}; "
+            f"{ms:.4f} ms per launch, plain {plain_ms:.4f} ms, torch.linalg.inv_ex "
+            f"{inv_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {ops} "
+            f"flops), {ms / bound_ms:.1f}x -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"K2 disagrees with its plain version at ({nb}, {b}, {b})")
+        banded_stacks[f"{nb}x{b}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=inv_ms,
+                                          bound_ms=bound_ms, bound_by=bound_by,
+                                          plan=pl.variant, cs=pl.cs)
+        del A, d_k, inv_k, d_p, inv_p
     # level 1's shape on seeded blocks without a guarded pivot, for comparison
     # with the solve's own blocks (check_k2_on_path)
     A = quasi_definite_blocks(rng, 64, b_main, torch.float64, tiny_block=False).to(dev)
     seeded_ms = time_cuda(lambda: k2.block_ldlt_inv(A), reps=100)
     log(f"K2 timing (64, 156, 156) float64 on seeded quasi-definite blocks: "
         f"{seeded_ms:.4f} ms per launch")
-    return dict(seeded_max_abs_err=main_err, seeded_ms=seeded_ms)
+    return dict(seeded_max_abs_err=main_err, seeded_ms=seeded_ms,
+                device_memory_variant=global_ms, banded_stacks=banded_stacks)
 
 
-def k2_bound(nb, b):
-    """(bound ms, bound_by, bytes, flops) of nb block inverses of width b in
-    float64: A read, Ainv and d written, against 2 b^3 flops per block."""
-    nbytes = 8 * (2 * nb * b * b + nb * b)
+def k2_bound(nb, b, dtype=None):
+    """(bound ms, bound_by, bytes, flops) of nb block inverses of width b
+    (float64 unless ``dtype`` says otherwise): A read, Ainv and d written,
+    against 2 b^3 flops per block."""
+    name = "float64" if dtype is None else str(dtype)[6:]
+    nbytes = (8 if name == "float64" else 4) * (2 * nb * b * b + nb * b)
     ops = gj_flops(nb, b)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S["float64"] * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[name] * 1e3
     bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
     return bound_ms, bound_by, nbytes, ops
 
@@ -387,35 +446,35 @@ def k2_bound(nb, b):
 # The BCR's upper levels and roots are far worse conditioned than seeded
 # blocks, and their sweeps grow: pivots reach 1e6 on entries of 1e2.
 PATH_TOL_INV, PATH_TOL_D = 1e-11, 1e-10
-LEVELS = ("ne=64", "ne=32", "ne=16", "ne=8", "ne=4", "ne=2", "ne=1", "root")
 
 
-def check_k2_on_path(dev, inputs, card):
-    """K2 on every input the warm chained solve gave it (captured from one
-    more warm solve), against its plain version, and timed per BCR level on
+def check_k2_on_path(dev, inputs, per, path, card):
+    """K2 on every input a warm solve of ``path`` gave it (captured from one
+    more warm solve; ``per`` launches per factorization, one per BCR level
+    and the root), against its plain version, and timed per BCR level on
     those inputs.  Held on every block: the inertia counts the retry loop
     reads from its pivots, the signs of live pivots, and where Ainv and d
     are finite.  Held on blocks without a guarded pivot: Ainv and d to the
-    limits stated above PATH_TOL_INV.  A block with a guarded (zero or NaN)
-    pivot comes from a retry trial, which the retry loop rejects on its
-    inertia alone; its errors are printed."""
+    limits stated above PATH_TOL_INV (up to b = 32 the kernel runs the plain
+    version's scalar sweep and equals it bit for bit).  A block with a
+    guarded (zero or NaN) pivot comes from a retry trial, which the retry
+    loop rejects on its inertia alone; its errors are printed."""
     import torch
     from ipopt_torch.linalg import block_ldlt_inv as k2
     from ipopt_torch.linalg.block_ldlt import _safe_pivot
     from ipopt_torch.linalg.block_tridiag import _block_inertia_counts
     from ipopt_torch.linalg.ldlt import _pivot_tols
-    per = LV1_K2_PER_FACTORIZATION
-    shapes = [tuple(A.shape) for A in inputs[:per]]
-    if len(inputs) != per * LV1_FACTORIZATIONS or shapes != [
-            (ne, 156, 156) for ne in (64, 32, 16, 8, 4, 2, 1, 1)]:
-        raise SystemExit(f"K2 on the path: captured {len(inputs)} inputs of shapes "
-                         f"{shapes}...")
+    if not inputs or len(inputs) % per:
+        raise SystemExit(f"K2 on the {path} path: {len(inputs)} inputs, not a multiple "
+                         f"of {per}")
+    names = [f"ne={A.shape[0]}" for A in inputs[:per - 1]] + ["root"]
+    b_path = inputs[0].shape[-1]
     tiny = torch.finfo(torch.float64).tiny
     eps = torch.finfo(torch.float64).eps
     level_ms, worst = [], {"regular": [0.0, 0.0], "guarded": [0.0, 0.0]}
     worst_ratio = worst_resid = 0.0
     max_abs_err, first_guarded = 0.0, []
-    for lev, name in enumerate(LEVELS):
+    for lev, name in enumerate(names):
         group = inputs[lev::per]
         n_blocks = n_guarded_blocks = n_guarded = n_pow2 = n_slow = 0
         for A in group:
@@ -457,7 +516,7 @@ def check_k2_on_path(dev, inputs, card):
             close = bool((ratio[reg] <= 1.0).all() and (rel_d[reg] <= PATH_TOL_D).all())
             if not (torch.equal(counts_k, counts_p) and signs_ok and pattern_ok and close):
                 raise SystemExit(
-                    f"K2 on the path: level {name} disagrees with its plain version "
+                    f"K2 on the {path} path: level {name} disagrees with its plain version "
                     f"(inertia equal {torch.equal(counts_k, counts_p)}, signs {signs_ok}, "
                     f"finite pattern {pattern_ok}, regular blocks within limits {close}: "
                     f"|dAinv| / limit {float(ratio[reg].max()) if bool(reg.any()) else 0.0:.3e}, "
@@ -475,8 +534,8 @@ def check_k2_on_path(dev, inputs, card):
         ms = time_cuda(lambda g=group: [k2.block_ldlt_inv(A) for A in g],
                        reps=10, warmup=1) / len(group)
         level_ms.append(ms)
-        pl = k2.plan(group[0].shape[0], 156, torch.float64)
-        log(f"K2 on the path, level {name}: {len(group)} inputs of {tuple(group[0].shape)}, "
+        pl = k2.plan(group[0].shape[0], b_path, torch.float64)
+        log(f"K2 on the {path} path, level {name}: {len(group)} inputs of {tuple(group[0].shape)}, "
             f"plan cs={pl.cs} strip rows={list(pl.rows)} shared={pl.smem} B; "
             f"{n_guarded_blocks}/{n_blocks} blocks with a guarded pivot, {n_guarded} "
             f"guarded pivots; pivots outside the fast quotients' range: {n_pow2} powers "
@@ -487,7 +546,7 @@ def check_k2_on_path(dev, inputs, card):
                 f"max|A Ainv - I| of the kernel at most {worst_resid:.3f}x the plain "
                 f"version's" if key == "regular"
                 else "not held: the retry loop reads only their inertia")
-        log(f"K2 on the path, blocks {'without' if key == 'regular' else 'with'} a "
+        log(f"K2 on the {path} path, blocks {'without' if key == 'regular' else 'with'} a "
             f"guarded pivot: max rel err Ainv {r_inv:.3e}, d {r_d:.3e} ({held})")
     first = inputs[0::per]
     trial = [A for A, g in zip(first, first_guarded) if g]
@@ -500,23 +559,23 @@ def check_k2_on_path(dev, inputs, card):
     A1 = first[-1]
     plain_ms = time_cuda(lambda: k2.block_ldlt_inv_plain(A1), reps=3, warmup=1)
     inv_ms = time_cuda(lambda: torch.linalg.inv_ex(A1), reps=20, warmup=2)
-    bound_ms, bound_by, nbytes, ops = k2_bound(64, 156)
+    nb1 = A1.shape[0]
+    bound_ms, bound_by, nbytes, ops = k2_bound(nb1, b_path)
     ms = level_ms[0]
-    log(f"K2 per launch on the path's own blocks (ne = 64, 32, 16, 8, 4, 2, 1, root): "
+    log(f"K2 per launch on the {path} path's own blocks ({', '.join(names)}): "
         + ", ".join(f"{t:.4f}" for t in level_ms) + f" ms; level 1 split: {split}; card {card}")
-    log(f"K2 timing (64, 156, 156) float64 on the path's own first-level blocks: kernel "
+    log(f"K2 timing ({nb1}, {b_path}, {b_path}) float64 on the {path} path's own "
+        f"first-level blocks: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
         f"{nbytes} B, {ops} flops), torch.linalg.inv_ex (inverse only, pivoted) "
         f"{inv_ms:.4f} ms")
-    slowest = max(level_ms[1:]) / ms
-    log(f"criterion K2 <= 0.15 ms at level 1 on the path's own blocks: "
-        f"{'met' if ms <= 0.15 else 'not met'} ({ms:.4f} ms); no later level more than "
-        f"10% slower than level 1: {'met' if slowest <= 1.1 else 'not met'} "
-        f"(slowest {slowest:.3f}x)")
-    pl = k2.plan(64, 156, torch.float64)
+    pl = k2.plan(nb1, b_path, torch.float64)
     return dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, inv_ms=inv_ms, level_ms=level_ms,
-                plan={"cs": pl.cs, "rows": list(pl.rows), "smem": pl.smem})
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=inv_ms,
+                level_ms=level_ms, launches_per_factorization=per,
+                first_level=[nb1, b_path, b_path],
+                plan={"variant": pl.variant, "cs": pl.cs, "rows": list(pl.rows),
+                      "smem": pl.smem})
 
 
 def chained_path(dev, opts, card):
@@ -583,7 +642,53 @@ def chained_path(dev, opts, card):
         raise SystemExit("chained path: the card and the CPU disagree at n=256")
     from ipopt_torch.profile_main import capture_k2_inputs
     inputs = capture_k2_inputs(lambda: ipopt_torch.solve(cnlp, device=dev, **opts))
+    shapes = [tuple(A.shape) for A in inputs[:LV1_K2_PER_FACTORIZATION]]
+    if len(inputs) != LV1_K2_PER_FACTORIZATION * LV1_FACTORIZATIONS or shapes != [
+            (ne, 156, 156) for ne in (64, 32, 16, 8, 4, 2, 1, 1)]:
+        raise SystemExit(f"chained path: captured {len(inputs)} K2 inputs of shapes "
+                         f"{shapes}...")
     return k2_launches, inputs
+
+
+# LuksanVlcek1 chained with 100 variables per group: KKT blocks v + 2 mk =
+# 496 wide, above the cluster variant's 416, so every BCR level runs K2's
+# device-memory variant.  Reference values: ipopt_tpu.solve(
+# modellib.luksan_vlcek1(1000, 100)) in float64 on the CPU, at commit
+# bb9bf3b, with the options of bench.py:74-80: status 0, 7 iterations, 21
+# factorizations, objective below.
+LV1W_N, LV1W_V = 1000, 100
+LV1W_STATUS, LV1W_ITERS, LV1W_FACTORIZATIONS = 0, 7, 21
+LV1W_OBJ = 6.2324586324370905
+
+
+def wide_chained_path(dev, opts, card):
+    """solve(luksan_vlcek1(1000, 100)) on the card, its K2 launches counted
+    from 0, against the reference's values; returns the launches."""
+    import torch
+    import ipopt_torch
+    from ipopt_torch import modellib
+    from ipopt_torch.linalg import block_ldlt_inv as k2
+    prob = modellib.luksan_vlcek1(LV1W_N, LV1W_V)
+    ch = ipopt_torch.canonicalize_chained(prob).chain
+    k2.block_ldlt_inv.launches = 0
+    t0 = time.perf_counter()
+    res = ipopt_torch.solve(prob, device=dev, **opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = k2.block_ldlt_inv.launches
+    got = (int(res.status), int(res.iter_count), int(res.counters.n_factorizations))
+    rel = abs(float(res.obj) - LV1W_OBJ) / abs(LV1W_OBJ)
+    pl = k2.plan(ch.K // 2 + 1, ch.bs, torch.float64)
+    log(f"wide chained path: solve(luksan_vlcek1({LV1W_N}, {LV1W_V})) float64, "
+        f"{ch.K + 1} blocks of {ch.bs} (K2 plan {pl.variant}): (status, iterations, "
+        f"factorizations) {got}, objective {float(res.obj)!r} (reference "
+        f"({LV1W_STATUS}, {LV1W_ITERS}, {LV1W_FACTORIZATIONS}), {LV1W_OBJ!r}, rel diff "
+        f"{rel:.2e}, tol 1e-9) in {wall:.3f} s; K2 launches {launches}; card {card}")
+    if got != (LV1W_STATUS, LV1W_ITERS, LV1W_FACTORIZATIONS) or rel > 1e-9:
+        raise SystemExit("wide chained path: the card differs from the reference")
+    if launches == 0 or pl.variant != "global":
+        raise SystemExit("wide chained path: K2's device-memory variant was not launched")
+    return launches
 
 
 # A dense NLP whose augmented KKT is 198 wide, above the 169 at which a whole
@@ -631,8 +736,10 @@ def dense_path(dev, opts, card):
 # tests/test_torch_chained.py (x_{k+1}[0] = x_k[0]^2 from x0 = -3), widened
 # to v = 200 variables per group, so its KKT blocks are 202 wide and its
 # restoration's 204 (v + 4 mk), above the 169 of the one-CTA kernel that
-# came before the cluster design.
-HARD_CHAIN_V = 200
+# came before the cluster design; and to v = 500 (KKT blocks 502,
+# restoration 504), above the cluster variant's 416: K2's device-memory
+# variant.
+HARD_CHAIN_VS = (200, 500)
 
 
 def hard_chain(v):
@@ -644,14 +751,14 @@ def hard_chain(v):
         x0=np.full((4, v), -3.0), g_L=np.zeros(1), g_U=np.zeros(1))
 
 
-def restoration_path(dev, card):
-    """hard_chain at v = 200 solved on the card, with the launch counts set
-    to 0 before and read after, against the same solve on the CPU; returns
-    the K2 launches."""
+def restoration_path(dev, card, v):
+    """hard_chain at v variables per group solved on the card, with the
+    launch counts set to 0 before and read after, against the same solve on
+    the CPU; returns the K2 launches."""
     import ipopt_torch
     from ipopt_torch.linalg import block_ldlt as bl
     from ipopt_torch.linalg import block_ldlt_inv as k2
-    prob = hard_chain(HARD_CHAIN_V)
+    prob = hard_chain(v)
     ch = ipopt_torch.canonicalize_chained(prob).chain
     bl.block_ldlt.launches = 0
     k2.block_ldlt_inv.launches = 0
@@ -664,7 +771,7 @@ def restoration_path(dev, card):
     rel = float(np.abs(x_card - x_cpu).max() / np.abs(x_cpu).max())
     got = [(int(r.status), int(r.iter_count), int(r.restoration_count))
            for r in (r_card, r_cpu)]
-    log(f"restoration path: hard_chain v={HARD_CHAIN_V}, {ch.K + 1} groups, KKT blocks "
+    log(f"restoration path: hard_chain v={v}, {ch.K + 1} groups, KKT blocks "
         f"{ch.bs} wide, restoration blocks {ch.v + 4 * ch.mk}: card (status, iterations, "
         f"restorations) {got[0]} in {wall:.3f} s, CPU {got[1]}; max|x_card - x_cpu| / "
         f"max|x_cpu| = {rel:.2e} (tol 1e-8); K2 launches {k2_launches}, K1 launches "
@@ -675,6 +782,241 @@ def restoration_path(dev, card):
     if k2_launches == 0:
         raise SystemExit("restoration path: K2 was not launched")
     return k2_launches
+
+
+# The banded path: LuksanVlcek1 as one flat NLP with its declared sparsity
+# (bench.py:247-263) at n = 1e5, through the general-sparsity backend
+# (declared pattern -> RCM -> BCR): 12,500 blocks of 16.  Reference values:
+# ipopt_tpu.solve(modellib.luksan_vlcek1_flat(100_000),
+# linear_solver="banded-bcr") in float64 on the CPU, at commit bb9bf3b, with
+# the options of bench.py:74-80: status 0, 6 iterations, 12 factorizations
+# (counters.n_factorizations), no restoration, objective below.  A
+# factorization of 12,500 blocks is 14 BCR levels (odd chains padded) and
+# the root: 15 K2 launches.
+LVF_N = 100_000
+LVF_STATUS, LVF_ITERS, LVF_FACTORIZATIONS = 0, 6, 12
+LVF_OBJ = 6.232458632392283
+LVF_K2_PER_FACTORIZATION = 15
+BANDED = dict(linear_solver="banded-bcr")
+
+
+def banded_path(dev, opts, card):
+    """solve(luksan_vlcek1_flat(1e5), linear_solver="banded-bcr") on the
+    card, cold then warm with the launch counts set to 0 before the warm
+    solve and read after it, against the reference's values;
+    luksan_vlcek1_flat(2000) on the card against the CPU; returns the warm
+    solve's K2 launches, every K2 input of one more warm solve and the
+    path's numbers."""
+    import torch
+    import ipopt_torch
+    from ipopt_torch import modellib
+    from ipopt_torch.linalg import block_ldlt as bl
+    from ipopt_torch.linalg import block_ldlt_inv as k2
+    from ipopt_torch.sparse import canonicalize_sparse
+    bopts = dict(opts, **BANDED)
+    t0 = time.perf_counter()
+    cnlp = canonicalize_sparse(modellib.luksan_vlcek1_flat(LVF_N),
+                               ipopt_torch.Options(**bopts), device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    info = cnlp.chain
+    t0 = time.perf_counter()
+    cold = ipopt_torch.solve(cnlp, device=dev, **bopts)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    bl.block_ldlt.launches = 0
+    k2.block_ldlt_inv.launches = 0
+    t0 = time.perf_counter()
+    res = ipopt_torch.solve(cnlp, device=dev, **bopts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2_launches, k1_launches = k2.block_ldlt_inv.launches, bl.block_ldlt.launches
+    status, iters, obj = int(res.status), int(res.iter_count), float(res.obj)
+    n_fact, n_resto = int(res.counters.n_factorizations), int(res.restoration_count)
+    bcr = res.batched_factorizations
+    rel = abs(obj - LVF_OBJ) / abs(LVF_OBJ)
+    log(f"banded path: solve(luksan_vlcek1_flat({LVF_N}), banded-bcr) float64, N = "
+        f"{info.N} unknowns in {info.nb} blocks of {info.b} (restoration NLP: "
+        f"{info.resto.nb} blocks of {info.resto.b}): status {status}, {iters} "
+        f"iterations, objective {obj!r} (reference {LVF_OBJ!r}, rel diff {rel:.2e}); "
+        f"warm solve {wall:.3f} s ({wall / max(iters, 1) * 1e3:.1f} ms/iteration), cold "
+        f"solve {cold_s:.3f} s, set-up (canonicalize_sparse) {setup_s:.3f} s; K2 "
+        f"launches {k2_launches}, K1 launches {k1_launches}, BCR factorizations {bcr} "
+        f"(counters.n_factorizations {n_fact}), restorations {n_resto}; card {card}")
+    checks = [
+        (status == LVF_STATUS, f"status {status} != {LVF_STATUS}"),
+        (iters == LVF_ITERS, f"{iters} iterations != {LVF_ITERS}"),
+        (bcr == n_fact == LVF_FACTORIZATIONS,
+         f"factorizations {bcr}/{n_fact} != {LVF_FACTORIZATIONS}"),
+        (rel <= 1e-9, f"objective {obj!r} off the reference by {rel:.2e}"),
+        (k2_launches == LVF_K2_PER_FACTORIZATION * bcr,
+         f"K2 launches {k2_launches} != {LVF_K2_PER_FACTORIZATION} x {bcr}"),
+        (k1_launches == 0, f"K1 launched {k1_launches} times"),
+        (n_resto == 0, f"{n_resto} restorations"),
+        (int(cold.iter_count) == iters, "cold and warm solves differ"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            raise SystemExit(f"banded path: {msg}")
+    small = modellib.luksan_vlcek1_flat(2000)
+    r_card = ipopt_torch.solve(small, device=dev, **bopts)
+    r_cpu = ipopt_torch.solve(small, device="cpu", **bopts)
+    got = [(int(r.status), int(r.iter_count), int(r.counters.n_factorizations))
+           for r in (r_card, r_cpu)]
+    rel = abs(float(r_card.obj) - float(r_cpu.obj)) / abs(float(r_cpu.obj))
+    log(f"banded path, luksan_vlcek1_flat(2000): card (status, iterations, "
+        f"factorizations) {got[0]}, objective {float(r_card.obj)!r}; CPU {got[1]}, "
+        f"objective {float(r_cpu.obj)!r} (rel diff {rel:.2e}, tol 1e-10)")
+    if got[0] != got[1] or got[0][0] != 0 or rel > 1e-10:
+        raise SystemExit("banded path: the card and the CPU disagree at n=2000")
+    from ipopt_torch.profile_main import capture_k2_inputs
+    inputs = capture_k2_inputs(lambda: ipopt_torch.solve(cnlp, device=dev, **bopts))
+    if len(inputs) != LVF_K2_PER_FACTORIZATION * LVF_FACTORIZATIONS:
+        raise SystemExit(f"banded path: captured {len(inputs)} K2 inputs")
+    return k2_launches, inputs, dict(wall_s=wall, cold_s=cold_s, setup_s=setup_s,
+                                     iterations=iters, factorizations=bcr)
+
+
+# Mittelmann's 2-D distributed control (MittelmannDistCntrlNeumA1,
+# bench.py:266-299) at N = 100: 20,404 variables, 10,400 equalities, 76
+# blocks of 408 after RCM; its restoration NLP analyzes to 41 blocks of
+# 1,288.  Held at the options above (float64, tol 1e-8: the card has native
+# float64, so the bench's float32 workaround does not apply).  Reference
+# values, ipopt_tpu.solve on the CPU in float64 at commit bb9bf3b with these
+# options and linear_solver="banded-bcr":
+# - N = 30: status 0, 20 iterations, 60 factorizations, objective below;
+# - N = 100, resto_phase=False: the per-iteration (iteration, objective,
+#   inf_pr, inf_du, mu, alpha_pr, alpha_du) of iterations 0-3 below.  At
+#   iteration 4 the line search decides on a knife's edge: the reference
+#   takes the full step, and two CPU runs of the port that differ in their
+#   thread count (so the unpivoted 408-wide eliminations round differently)
+#   take a full second-order-corrected step in one and fail the line search
+#   in the other, so the comparison stops before it.  The reference's
+#   solve of N = 100 with restoration could not be obtained on the CPU (it
+#   ran out of 62 GiB of host memory).
+MITT_N = 100
+MITT30_REF = (0, 20, 60, 0.07666745375507729)
+MITT100_NR_TRACE = np.array([
+    (0, 0.12512253700617587, 0.00014704440741103816, 1.0000980058956128, 0.1, 1.0, 0.9898215676033262),
+    (1, 0.12876760936446482, 0.00016783874905019802, 0.010177442575106298, 0.020000000000000004, 1.0, 0.8671056400282245),
+    (2, 0.15000300921423584, 3.860180160467352e-05, 0.011012192988037, 0.002828427124746191, 1.0, 0.997150717583102),
+    (3, 0.1658535926002046, 1.8977936570374763e-05, 0.0008420731700932927, 0.00015042412372345582, 1.0, 0.9994493431106592)])
+
+
+def _mitt_trace():
+    rows = []
+
+    def cb(iter_count, obj_value, inf_pr, inf_du, mu, alpha_pr, alpha_du, **_):
+        rows.append((iter_count, obj_value, inf_pr, inf_du, mu, alpha_pr, alpha_du))
+        return True
+
+    return rows, cb
+
+
+def mittelmann_path(dev, opts, card):
+    """Mittelmann's distributed control on the card through the banded
+    backend: N = 30 against the reference's values; N = 100 without
+    restoration against the reference's values and per-iteration trace;
+    N = 100 at the default options (restoration on: K2's device-memory
+    variant at b = 1288), launch counts from 0, its outcome logged.
+    Returns its numbers."""
+    import torch
+    import ipopt_torch
+    from ipopt_torch import modellib
+    from ipopt_torch.linalg import block_ldlt as bl
+    from ipopt_torch.linalg import block_ldlt_inv as k2
+    from ipopt_torch.sparse import canonicalize_sparse
+    bopts = dict(opts, **BANDED)
+    r30 = ipopt_torch.solve(modellib.mittelmann_dist_control(30), device=dev, **bopts)
+    got30 = (int(r30.status), int(r30.iter_count), int(r30.counters.n_factorizations))
+    rel30 = abs(float(r30.obj) - MITT30_REF[3]) / abs(MITT30_REF[3])
+    log(f"Mittelmann path, N = 30: card (status, iterations, factorizations) {got30}, "
+        f"objective {float(r30.obj)!r}; reference {MITT30_REF}, rel diff {rel30:.2e} "
+        f"(tol 1e-9)")
+    if got30 != MITT30_REF[:3] or rel30 > 1e-9:
+        raise SystemExit("Mittelmann path: N = 30 differs from the reference")
+
+    t0 = time.perf_counter()
+    cnlp = canonicalize_sparse(modellib.mittelmann_dist_control(MITT_N),
+                               ipopt_torch.Options(**bopts), device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    info = cnlp.chain
+    rows, cb = _mitt_trace()
+    rnr = ipopt_torch.solve(cnlp, device=dev, resto_phase=False, intermediate_callback=cb,
+                            **bopts)
+    k = len(MITT100_NR_TRACE)
+    t_p = np.array(rows[:k])
+    trace_ok = (t_p.shape == MITT100_NR_TRACE.shape
+                and np.allclose(t_p, MITT100_NR_TRACE, rtol=1e-7, atol=1e-10))
+    worst = (float(np.max(np.abs(t_p - MITT100_NR_TRACE)
+                          / np.maximum(np.abs(MITT100_NR_TRACE), 1e-10)))
+             if t_p.shape == MITT100_NR_TRACE.shape else float("nan"))
+    log(f"Mittelmann path, N = {MITT_N}, resto_phase=False: iterations 0-{k - 1} equal "
+        f"to the reference's to rtol 1e-7: {trace_ok} (max rel diff {worst:.2e}); then "
+        f"(status, iterations, factorizations) ({int(rnr.status)}, {int(rnr.iter_count)}, "
+        f"{int(rnr.counters.n_factorizations)}); iteration 4 on the card: "
+        f"{rows[4] if len(rows) > 4 else None}")
+    if not trace_ok:
+        raise SystemExit("Mittelmann path: N = 100 differs from the reference's trace")
+
+    bl.block_ldlt.launches = 0
+    k2.block_ldlt_inv.launches = 0
+    t0 = time.perf_counter()
+    res = ipopt_torch.solve(cnlp, device=dev, **bopts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2_launches, k1_launches = k2.block_ldlt_inv.launches, bl.block_ldlt.launches
+    got = (int(res.status), int(res.iter_count), int(res.counters.n_factorizations),
+           int(res.restoration_count))
+    obj = float(res.obj)
+    log(f"Mittelmann path: solve(mittelmann_dist_control({MITT_N}), banded-bcr) float64, "
+        f"n = {info.n}, N = {info.N} in {info.nb} blocks of {info.b} (restoration NLP: "
+        f"{info.resto.nb} blocks of {info.resto.b}): (status, iterations, "
+        f"factorizations, restorations) {got}, objective {obj!r}; solve {wall:.3f} s "
+        f"({wall / max(got[1], 1) * 1e3:.1f} ms/iteration), set-up "
+        f"{setup_s:.3f} s; K2 launches {k2_launches}, K1 launches {k1_launches}; "
+        f"card {card}")
+    if k2_launches == 0 or k1_launches != 0 or not np.isfinite(obj):
+        raise SystemExit(f"Mittelmann path: K2 launches {k2_launches}, K1 {k1_launches}, "
+                         f"restorations {got[3]}, objective {obj}")
+    return dict(wall_s=wall, setup_s=setup_s, status=got[0], iterations=got[1],
+                factorizations=got[2], restorations=got[3], k2_launches=k2_launches,
+                objective=obj)
+
+
+def infeasible_banded(n=12):
+    """tests/test_sparse_backend.py:146-163 in torch: a consistent chain
+    plus the rows x0 = 1 and x0 = -1, so the problem is locally infeasible."""
+    import torch
+    import ipopt_torch
+
+    def g(x):
+        chain = x[:-2] + x[1:-1] - 2.0 * x[2:]
+        return torch.cat([chain, torch.stack([x[0] - 1.0, x[0] + 1.0])])
+    return ipopt_torch.NLP(f=lambda x: ((x - 0.5) ** 2).sum(), g=g, g_L=np.zeros(n),
+                           g_U=np.zeros(n), x0=np.full(n, 0.5), x_L=-3.0, x_U=3.0)
+
+
+def banded_restoration_path(dev, card):
+    """The banded restoration on the card against the CPU: the same status
+    (LOCAL_INFEASIBILITY), iteration and restoration counts."""
+    import ipopt_torch
+    from ipopt_torch.linalg import block_ldlt_inv as k2
+    kw = dict(print_level=0, tol=1e-8, **BANDED)
+    k2.block_ldlt_inv.launches = 0
+    r_card = ipopt_torch.solve(infeasible_banded(), device=dev, **kw)
+    launches = k2.block_ldlt_inv.launches
+    r_cpu = ipopt_torch.solve(infeasible_banded(), device="cpu", **kw)
+    got = [(int(r.status), int(r.iter_count), int(r.restoration_count))
+           for r in (r_card, r_cpu)]
+    log(f"banded restoration path: infeasible chain (n = 12): card (status, "
+        f"iterations, restorations) {got[0]}, CPU {got[1]}; K2 launches {launches}")
+    local_infeasibility = int(ipopt_torch.SolverReturn.LOCAL_INFEASIBILITY)
+    if got[0] != got[1] or got[0][0] != local_infeasibility or got[0][2] == 0:
+        raise SystemExit("banded restoration path: the card and the CPU disagree")
+    if launches == 0:
+        raise SystemExit("banded restoration path: K2 was not launched")
 
 
 def main():
@@ -785,25 +1127,48 @@ def main():
     # 6. a dense KKT above the old one-CTA limit of K1
     dense_path(dev, opts, card)
 
-    # 7. the chained path
-    k2_launches, k2_inputs = chained_path(dev, opts, card)
-    k2_stats.update(check_k2_on_path(dev, k2_inputs, card))
+    # 7. the chained path, and at 496-wide blocks
+    k2_chained_launches, k2_inputs = chained_path(dev, opts, card)
+    k2_chained = check_k2_on_path(dev, k2_inputs, LV1_K2_PER_FACTORIZATION,
+                                  "chained", card)
     del k2_inputs
+    paths = {"chained_lv1_4096_32": k2_chained_launches,
+             "chained_lv1_1000_100": wide_chained_path(dev, opts, card)}
 
-    # 8. the chained restoration at 204-wide blocks
-    restoration_path(dev, card)
+    # 8. the chained restoration at 204- and 504-wide blocks
+    for v in HARD_CHAIN_VS:
+        paths[f"hard_chain_{v}"] = restoration_path(dev, card, v)
 
-    # 9. kernels line, 10. result line
+    # 9. the banded path (this slice's main path), Mittelmann, the banded
+    #    restoration
+    k2_launches, k2_inputs, banded = banded_path(dev, opts, card)
+    k2_banded = check_k2_on_path(dev, k2_inputs, LVF_K2_PER_FACTORIZATION, "banded",
+                                 card)
+    del k2_inputs
+    paths["banded_lv1_flat_1e5"] = k2_launches
+    mitt = mittelmann_path(dev, opts, card)
+    paths["mittelmann_100"] = mitt["k2_launches"]
+    banded_restoration_path(dev, card)
+
+    # 10. kernels line, 11. result line
+    k2_entry = dict(k2_banded)
+    k2_entry.update(
+        banded=banded, chained=dict(k2_chained, launches=k2_chained_launches),
+        mittelmann=mitt, launches_per_path=paths,
+        seeded_ms=k2_stats["seeded_ms"], seeded_max_abs_err=k2_stats["seeded_max_abs_err"],
+        device_memory_variant=k2_stats["device_memory_variant"],
+        banded_stacks=k2_stats["banded_stacks"])
+    k1_entry = dict(k1_stats)
+    k1_entry["library_ms"] = k1_entry.pop("ldl_factor_ms")
     print(json.dumps({"kernels": [{
         "name": "block_ldlt", "route": "cuda",
         "source": "ipopt_torch/csrc/block_ldlt.cu",
         "replaces": "ipopt_tpu/linalg/pallas_ldlt.py:26",
-        "launches": launches, **k1_stats,
-        "library_ms": None}, {
+        "launches": launches, **k1_entry}, {
         "name": "block_ldlt_inv", "route": "cuda",
         "source": "ipopt_torch/csrc/block_ldlt_inv.cu",
         "replaces": "ipopt_tpu/linalg/pallas_ldlt.py:86",
-        "launches": k2_launches, **k2_stats, "library_ms": None}]}), flush=True)
+        "launches": k2_launches, **k2_entry}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

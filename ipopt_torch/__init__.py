@@ -6,8 +6,12 @@ explicit batch axis in PyTorch; the batched unpivoted LDL^T of the KKT
 matrices is a hand-written CUDA kernel (``csrc/block_ldlt.cu``, K1).  Chained
 problems (``ChainedNLP``) run on a block-tridiagonal KKT backend, factored by
 block cyclic reduction whose block inverses are the hand-written kernel
-``csrc/block_ldlt_inv.cu`` (K2).  The entry points run on the CUDA device
-unless the caller passes ``device="cpu"``.
+``csrc/block_ldlt_inv.cu`` (K2).  A flat ``NLP`` solved with
+``linear_solver="banded-bcr"`` runs on the general-sparsity backend
+(``ipopt_torch.sparse``): its declared or detected sparsity pattern is
+reordered by reverse Cuthill-McKee into the same block-tridiagonal form.
+The entry points run on the CUDA device unless the caller passes
+``device="cpu"``.
 
 Quick start::
 
@@ -16,6 +20,8 @@ Quick start::
     res = solve(modellib.hs071(), device="cpu")         # on the CPU
     rb = solve_batched([modellib.hs071_family(0.005 * i) for i in range(512)])
     rc = solve(modellib.luksan_vlcek1(4096, 32))        # chained, on the card
+    rs = solve(modellib.luksan_vlcek1_flat(100_000),    # banded, on the card
+               linear_solver="banded-bcr")
 """
 
 from .types import Iterate, SolverReturn, ApplicationReturnStatus

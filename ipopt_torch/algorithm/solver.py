@@ -1,8 +1,9 @@
 """The interior-point driver: IpoptAlgorithm::Optimize, over a batch.
 
 Port of the default path of ``ipopt_tpu/algorithm/solver.py``
-(``src/Algorithm/IpIpoptAlg.cpp:292-417``), on the dense and the chained
-(block-tridiagonal) KKT backends:
+(``src/Algorithm/IpIpoptAlg.cpp:292-417``), on the dense, the chained
+(block-tridiagonal) and the banded (general sparsity, ``linear_solver=
+"banded-bcr"``) KKT backends:
 
     InitializeIterates -> CheckConvergence -> loop {
         UpdateHessian; UpdateBarrierParameter; ComputeSearchDirection;
@@ -29,7 +30,7 @@ from .. import kkt
 from ..kkt import Evals, evaluate, kkt_residuals, optimality_error, slacks
 from ..linalg import ldlt as _ldlt_mod
 from ..linalg.block_tridiag import bcr_factorize
-from .step import compute_search_direction, compute_hessian
+from .step import compute_search_direction, compute_hessian, _backend
 from .linesearch import (FilterState, filter_init, line_search, filter_reset,
                          filter_augment, _theta)
 from .mu import MuState, mu_init_state, monotone_mu_update_components
@@ -54,7 +55,7 @@ _SUPPORTED = (
     ("mu_strategy", ("monotone",)),
     ("mehrotra_algorithm", (False,)),
     ("hessian_approximation", ("exact",)),
-    ("linear_solver", ("dense-ldlt",)),
+    ("linear_solver", ("dense-ldlt", "banded-bcr")),
     ("inexact_algorithm", (False,)),
     ("line_search_method", ("filter",)),
     ("corrector_type", ("none",)),
@@ -409,6 +410,11 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
     resto_count = st.restoration_count
     if nlp.struct.me + nlp.struct.mi == 0 or not opts.resto_phase:
         enable_resto = False
+    backend = _backend(nlp)
+    if backend == "banded" and nlp.chain.resto is None:
+        # a banded problem without the restoration's analysis (the
+        # restoration NLP itself) cannot nest another restoration
+        enable_resto = False
     if enable_resto:
         resto_opts = opts.resto_options()
         # entering restoration augments the outer filter with the current
@@ -422,9 +428,12 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
             args = (opts, resto_opts, tree_take(it, idx), tree_take(ev, idx),
                     mu[idx], tree_take(fs_entry, idx), ls.theta_curr[idx],
                     ls.phi_curr[idx], ipm_step)
-            if nlp.chain is not None:
+            if backend == "btd":
                 from .chained_resto import perform_restoration_chained
                 rr = perform_restoration_chained(sub, *args)
+            elif backend == "banded":
+                from .banded_resto import perform_restoration_banded
+                rr = perform_restoration_banded(sub, *args)
             else:
                 from .restoration import build_resto_nlp, perform_restoration
                 rr = perform_restoration(sub, build_resto_nlp(sub, opts), *args)
@@ -705,7 +714,9 @@ def solve(problem, options: Optional[Options] = None, device=None,
           intermediate_callback=None, **option_kwargs) -> SolveResult:
     """Solve one NLP (IpoptApplication::OptimizeTNLP equivalent).
 
-    ``problem`` is an ``NLP``, a ``ChainedNLP`` (solved on the
+    ``problem`` is an ``NLP`` (on the dense backend, or with
+    ``linear_solver="banded-bcr"`` on the banded backend of
+    ``ipopt_torch.sparse``), a ``ChainedNLP`` (solved on the
     block-tridiagonal backend) or a canonical problem with one lane.  The
     solve runs on ``device``, by default the CUDA device; pass
     ``device="cpu"`` for the CPU.  Keyword arguments override options by
@@ -720,7 +731,10 @@ def solve(problem, options: Optional[Options] = None, device=None,
     if intermediate_callback is not None:
         from ..options import register_callback
         opts = opts.replace(callback_token=register_callback(intermediate_callback))
-    if isinstance(problem, NLP):
+    if isinstance(problem, NLP) and opts.linear_solver == "banded-bcr":
+        from ..sparse import canonicalize_sparse
+        cnlp = canonicalize_sparse(problem, opts, device=dev)
+    elif isinstance(problem, NLP):
         cnlp = canonicalize(problem, opts, device=dev)
     elif isinstance(problem, ChainedNLP):
         cnlp = canonicalize_chained(problem, opts, device=dev)

@@ -1,8 +1,9 @@
 """Search direction: the PDFullSpaceSolver + PDPerturbationHandler equivalent,
-over a batch (port of ``ipopt_tpu/algorithm/step.py``), with two KKT
+over a batch (port of ``ipopt_tpu/algorithm/step.py``), with three KKT
 backends chosen by the problem (``_backend``): the dense augmented system
-(K1), and the block-tridiagonal system of a chained problem
-(``chained_kkt.py``, BCR with K2).
+(K1), the block-tridiagonal system of a chained problem (``chained_kkt.py``,
+BCR with K2), and the RCM-banded system of a flat problem with
+``linear_solver="banded-bcr"`` (``ipopt_torch/sparse.py``, the same BCR).
 
 The reference runs each retry loop per instance under ``vmap``; here each
 loop runs over the batch while any lane is still active, and a lane that is
@@ -35,7 +36,7 @@ class StepResult(NamedTuple):
     failed: Any
     num_trials: Any
     residual_ratio: Any
-    fac: Any   # LDLTResult (dense) or BCRFactor (chained)
+    fac: Any   # LDLTResult (dense) or BCRFactor (chained, banded)
     K: Any
 
 
@@ -181,37 +182,56 @@ def factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
 
 
 def _backend(nlp: CanonicalNLP) -> str:
-    """"btd" for a chained problem, else "dense"."""
-    return "dense" if nlp.chain is None else "btd"
+    """"dense" without a structure, "banded" for a ``BandedInfo``
+    (``sparse.canonicalize_sparse``), "btd" for a chain's ``ChainInfo``."""
+    from ..sparse import BandedInfo
+    if nlp.chain is None:
+        return "dense"
+    return "banded" if isinstance(nlp.chain, BandedInfo) else "btd"
 
 
 def compute_hessian(nlp: CanonicalNLP, it: Iterate):
     """The exact Lagrangian Hessian at the current iterate, shaped for the
-    backend: dense (B, n, n), or the stage blocks (Wd, Wo) of a chain."""
-    if _backend(nlp) == "btd":
+    backend: dense (B, n, n), the stage blocks (Wd, Wo) of a chain, or the
+    entry values (B, nnz) of the banded backend's pattern."""
+    be = _backend(nlp)
+    if be == "btd":
         from ..chained import stage_hessians
         return stage_hessians(nlp, it.x, it.y_c, it.y_d)
+    if be == "banded":
+        from ..sparse import sparse_hessian_values
+        return sparse_hessian_values(nlp, it)
     return nlp.eval_lag_hess(it.x, it.y_c, it.y_d)
 
 
 def factorize_any(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
                   hess, mu, delta_w_last):
     """Backend dispatch of the inertia-corrected factorization."""
-    if _backend(nlp) == "btd":
+    be = _backend(nlp)
+    if be == "btd":
         from .chained_kkt import chained_factorize_kkt
         from ..chained import stage_jacobians
         return chained_factorize_kkt(nlp, opts, it, stage_jacobians(nlp, it.x),
                                      hess, mu, delta_w_last)
+    if be == "banded":
+        from ..sparse import banded_factorize_kkt
+        return banded_factorize_kkt(nlp, opts, it, hess, mu, delta_w_last)
     return factorize_kkt(nlp, opts, it, ev, hess, mu, delta_w_last)
 
 
 def solve_any(nlp: CanonicalNLP, opts: Options, fac, K, parts):
     """Solve the factorized augmented system for the four RHS blocks;
     returns ((dx, ds, dy_c, dy_d), residual_ratio)."""
-    if _backend(nlp) == "btd":
+    be = _backend(nlp)
+    if be == "btd":
         from .chained_kkt import pack_rhs, unpack_sol, chained_solve_refined
         sol, rr = chained_solve_refined(K, fac, pack_rhs(nlp, *parts), opts)
         return unpack_sol(nlp, sol), rr
+    if be == "banded":
+        from ..sparse import pack_rhs_banded, unpack_sol_banded
+        from .chained_kkt import chained_solve_refined
+        sol, rr = chained_solve_refined(K, fac, pack_rhs_banded(nlp, *parts), opts)
+        return unpack_sol_banded(nlp, sol), rr
     rhs = torch.cat(parts, dim=-1)
     sol, rr = solve_with_refinement(K, fac, rhs, opts)
     return split_aug_solution(sol, nlp.n, nlp.mi, nlp.me), rr

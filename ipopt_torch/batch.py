@@ -16,6 +16,7 @@ import torch
 from .problem import CanonicalNLP, ARRAY_FIELDS, canonicalize
 from .chained import ChainedNLP, canonicalize_chained
 from .options import Options
+from .sparse import BandedInfo
 from .algorithm.solver import (SolveResult, guarded_step, prepare_options,
                                resolve_device, solve_canonical)
 
@@ -31,14 +32,22 @@ def stack_problems(problems, options: Optional[Options] = None,
     one transfer per array.  The callables must be the same computation for
     every instance (per-instance data travels in the bounds, ``c_rhs``,
     ``x0`` and ``params``); the first instance's are kept.  Chained problems
-    must share one ``ChainInfo`` (the MPC-fleet pattern)."""
+    must share one ``ChainInfo`` (the MPC-fleet pattern).  Banded problems
+    (``linear_solver="banded-bcr"``) are refused: that backend solves one
+    problem at a time, as the reference's does."""
     opts = options or Options()
+    banded = ("the banded backend (linear_solver='banded-bcr') solves one problem "
+              "at a time: use solve()")
 
     def canon(p):
         if isinstance(p, CanonicalNLP):  # a NamedTuple: test it first
+            if isinstance(p.chain, BandedInfo):
+                raise ValueError(banded)
             return p
         if isinstance(p, ChainedNLP):
             return canonicalize_chained(p, opts)
+        if opts.linear_solver == "banded-bcr":
+            raise ValueError(banded)
         return canonicalize(p, opts)
 
     cs = [canon(p) for p in problems]

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .chained import ChainInfo, flat_callables
+from .sparse import BandedInfo
 from .options import Options
 from .problem import ARRAY_FIELDS, CanonicalNLP, CanonicalStructure
 from .types import Iterate
@@ -88,3 +89,27 @@ def iterate_from_arrays(blocks: Sequence[Any], device="cpu",
     axis of one."""
     batched = np.asarray(blocks[0]).ndim == 2
     return Iterate(*(_tensor(b, device, dtype, batched) for b in blocks))
+
+
+_BANDED_INTS = ("n", "mi", "me", "N", "b", "nb", "n_colors_j", "n_colors_h", "n_pad",
+                "n_vals")
+_BANDED_ARRAYS = ("perm", "pos", "j_rows", "j_cols", "j_colors", "h_rows", "h_cols",
+                  "h_colors", "row_unknown", "asm_slot", "asm_src", "asm_inv",
+                  "diag_kind")
+# the reference keeps these on the object under private names
+_BANDED_MASKS = (("h_keep", "_h_keep_mask"), ("j_mirror", "_j_mirror_mask"),
+                 ("s_mirror", "_s_mirror_mask"))
+
+
+def banded_info_from_reference(info) -> BandedInfo:
+    """The port's ``BandedInfo`` from the reference's (``ipopt_tpu.sparse``),
+    its restoration analysis included; every array is copied as numpy."""
+    def arr(v):
+        return None if v is None else np.array(v)
+
+    fields = {k: int(getattr(info, k)) for k in _BANDED_INTS}
+    fields.update({k: arr(getattr(info, k)) for k in _BANDED_ARRAYS})
+    fields.update({k: arr(getattr(info, ref, None)) for k, ref in _BANDED_MASKS})
+    resto = getattr(info, "_resto_info", None)
+    fields["resto"] = None if resto is None else banded_info_from_reference(resto)
+    return BandedInfo(**fields)

@@ -76,7 +76,8 @@
 //   96 x 164 x 8 + 16,384 = 142,336 B.  At b = 408 float64 the 13 panels need
 //   strips of at most 2 panels (64 x 420 x 8 + 16,384 = 231,424 B of the
 //   232,448 a CTA may use; 3 panels would be 338,944), so cs = 7.  The
-//   largest b is 416 in float64 and 576 in float32.
+//   cluster variant's largest b is 416 in float64 and 576 in float32; wider
+//   blocks take the device-memory variant below, so every b runs.
 //   No buffer holds R_o or CP: R_o is read from q in place and CP is kept
 //   in the strip's panel columns, where it belongs after the step.
 //
@@ -489,6 +490,204 @@ int launch(const void* A, void* Ainv, void* D, int nb, int b, int cs, int smem,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The device-memory variant, for blocks whose strips do not fit the widest
+// portable cluster (b > 416 in float64, 576 in float32).  The working block X
+// lives in the output buffer Ainv (A is copied there first); each panel step
+// is three launches over all the blocks, in stream order:
+//   1. gj_global_sweep: one CTA per block sweeps X_PP (sweep_panel, above),
+//      writes the pivots and puts Pinv in place of X_PP;
+//   2. gj_global_panel: one CTA per 32-row tile of a block outside P forms
+//      CP = X_tile,P Pinv and writes it in place of X_tile,P; one CTA per
+//      32-column tile outside P saves R = X_P,tile to the scratch buffer Rs
+//      (nb, 32, b) and writes -Pinv R in place of X_P,tile;
+//   3. gj_global_update: one CTA per 64 x 64 tile of a block applies
+//      X_oo += (-CP) R, reading CP from X_o,P and R from Rs, and writes only
+//      the entries outside P's rows and columns.
+// No launch reads what another CTA of the same launch writes.  The products
+// run on the FP64 tensor cores in float64 (DMMA, the fragment layout of the
+// cluster variant) and as IEEE FFMA in float32.  A 1288-wide float64 block is
+// 13.3 MB: a launch of 20 of them streams 266 MB through device memory per
+// panel step, so this variant is bound by bytes (b / 32 passes over X) where
+// the cluster variant reads and writes each block once.
+// ---------------------------------------------------------------------------
+
+constexpr int kGThreads = 256;
+constexpr int kGWarps = kGThreads / 32;
+constexpr int kLdA = kPanel + 4;    // row stride of a (rows x 32) tile in shared memory
+constexpr int kUTile = 64;          // output tile of the rank-32 update
+constexpr int kLdB = kUTile + 4;
+
+// One 8 x 8 output tile over k = 0..31: (c0, c1) += A[m0 + g][k] B[k][n0 + 2 c4 + {0, 1}]
+// with A and B in shared memory; lane = 4 g + c4.
+template <typename T> struct Mma8;
+
+template <> struct Mma8<double> {
+  static __device__ __forceinline__ void run(const double* A, int lda, const double* B,
+                                             int ldb, int m0, int n0, double& c0,
+                                             double& c1) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, c4 = lane & 3;
+#pragma unroll
+    for (int s = 0; s < 8; ++s)
+      dmma(c0, c1, A[(m0 + g) * lda + 4 * s + c4], B[(4 * s + c4) * ldb + n0 + g]);
+  }
+};
+
+template <> struct Mma8<float> {
+  static __device__ __forceinline__ void run(const float* A, int lda, const float* B,
+                                             int ldb, int m0, int n0, float& c0,
+                                             float& c1) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, c4 = lane & 3;
+    const float* a = A + (m0 + g) * lda;
+    const float* bc = B + n0 + 2 * c4;
+#pragma unroll
+    for (int k = 0; k < kPanel; ++k) {
+      c0 = fmaf(a[k], bc[k * ldb], c0);
+      c1 = fmaf(a[k], bc[k * ldb + 1], c1);
+    }
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gj_global_sweep(T* __restrict__ X, T* __restrict__ D, int b, int p0, int t) {
+  __shared__ T Pl[kTile];
+  __shared__ T Pw[kTile];
+  const long long blk = blockIdx.x;
+  T* Xp = X + blk * b * b + (long long)p0 * b + p0;
+  sweep_panel<T>(Xp, b, t, Pl, Pw, D + blk * b + p0);
+  for (int e = threadIdx.x; e < kTile; e += kThreads) {
+    const int i = e >> 5, j = e & 31;
+    if (i < t && j < t) Xp[(long long)i * b + j] = Pl[e];
+  }
+}
+
+// grid: nb * 2 * n_panels CTAs; tile = the 32-row (kind 0) or 32-column
+// (kind 1) tile of block blk, skipped when it is the panel's own.
+template <typename T>
+__global__ void __launch_bounds__(kGThreads)
+gj_global_panel(T* __restrict__ X, T* __restrict__ Rs, int b, int p0, int t) {
+  __shared__ T As[kPanel * kLdA];
+  __shared__ T Bs[kPanel * kLdA];
+  const int n_panels = (b + kPanel - 1) / kPanel;
+  const long long blk = blockIdx.x / (2 * n_panels);
+  const int rem = blockIdx.x % (2 * n_panels);
+  const int kind = rem / n_panels, tile = rem % n_panels;
+  if (tile * kPanel == p0) return;
+  const int q0 = tile * kPanel;
+  T* Xb = X + blk * b * b;
+  const T* Pinv = Xb + (long long)p0 * b + p0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c4 = lane & 3;
+  if (kind == 0) {
+    // rows q0.. : As = X[q0 + i][p0 + k], Bs = Pinv
+    for (int e = threadIdx.x; e < kTile; e += kGThreads) {
+      const int i = e >> 5, k = e & 31;
+      As[i * kLdA + k] = (q0 + i < b && k < t) ? Xb[(long long)(q0 + i) * b + p0 + k] : T(0);
+      Bs[i * kLdA + k] = (i < t && k < t) ? Pinv[(long long)i * b + k] : T(0);
+    }
+  } else {
+    // columns q0.. : As = -Pinv, Bs = R = X[p0 + k][q0 + j], saved to Rs
+    T* Rb = Rs + blk * kPanel * b;
+    for (int e = threadIdx.x; e < kTile; e += kGThreads) {
+      const int i = e >> 5, j = e & 31;
+      As[i * kLdA + j] = (i < t && j < t) ? -Pinv[(long long)i * b + j] : T(0);
+      const T r = (i < t && q0 + j < b) ? Xb[(long long)(p0 + i) * b + q0 + j] : T(0);
+      Bs[i * kLdA + j] = r;
+      if (q0 + j < b) Rb[(long long)i * b + q0 + j] = r;
+    }
+  }
+  __syncthreads();
+  // 16 output tiles of 8 x 8, two per warp
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int st = warp * 2 + h, m0 = (st >> 2) * 8, n0 = (st & 3) * 8;
+    T c0 = T(0), c1 = T(0);
+    Mma8<T>::run(As, kLdA, Bs, kLdA, m0, n0, c0, c1);
+    const int i = m0 + g, j = n0 + 2 * c4;
+    if (kind == 0) {
+      if (q0 + i < b) {
+        T* out = Xb + (long long)(q0 + i) * b + p0;
+        if (j < t) out[j] = c0;
+        if (j + 1 < t) out[j + 1] = c1;
+      }
+    } else if (i < t) {
+      T* out = Xb + (long long)(p0 + i) * b + q0;
+      if (q0 + j < b) out[j] = c0;
+      if (q0 + j + 1 < b) out[j + 1] = c1;
+    }
+  }
+}
+
+// grid: nb * tiles * tiles CTAs, tiles = ceil(b / 64).
+template <typename T>
+__global__ void __launch_bounds__(kGThreads)
+gj_global_update(T* __restrict__ X, const T* __restrict__ Rs, int b, int p0, int t) {
+  __shared__ T As[kUTile * kLdA];   // -CP rows of the tile
+  __shared__ T Bs[kPanel * kLdB];   // R columns of the tile
+  const int tiles = (b + kUTile - 1) / kUTile;
+  const long long blk = blockIdx.x / (tiles * tiles);
+  const int rem = blockIdx.x % (tiles * tiles);
+  const int r0 = (rem / tiles) * kUTile, n00 = (rem % tiles) * kUTile;
+  T* Xb = X + blk * b * b;
+  const T* Rb = Rs + blk * kPanel * b;
+  for (int e = threadIdx.x; e < kUTile * kPanel; e += kGThreads) {
+    const int i = e >> 5, k = e & 31;
+    As[i * kLdA + k] = (r0 + i < b && k < t) ? -Xb[(long long)(r0 + i) * b + p0 + k] : T(0);
+    const int kk = e / kUTile, j = e % kUTile;
+    Bs[kk * kLdB + j] = (kk < t && n00 + j < b) ? Rb[(long long)kk * b + n00 + j] : T(0);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c4 = lane & 3;
+  const int i = r0 + warp * 8 + g;
+  const bool row_ok = i < b && (i < p0 || i >= p0 + t);
+#pragma unroll
+  for (int nt = 0; nt < kUTile / 8; ++nt) {
+    const int j = n00 + nt * 8 + 2 * c4;
+    T* x = Xb + (long long)min(i, b - 1) * b;
+    const bool ok0 = row_ok && j < b && (j < p0 || j >= p0 + t);
+    const bool ok1 = row_ok && j + 1 < b && (j + 1 < p0 || j + 1 >= p0 + t);
+    T c0 = ok0 ? x[j] : T(0), c1 = ok1 ? x[j + 1] : T(0);
+    Mma8<T>::run(As, kLdA, Bs, kLdB, warp * 8, nt * 8, c0, c1);
+    if (ok0) x[j] = c0;
+    if (ok1) x[j + 1] = c1;
+  }
+}
+
+template <typename T>
+int launch_global(const void* A, void* Ainv, void* D, void* R, int nb, int b, int device,
+                  void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (nb <= 0 || b <= 0) return 0;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  T* X = static_cast<T*>(Ainv);
+  T* Dp = static_cast<T*>(D);
+  T* Rs = static_cast<T*>(R);
+  err = cudaMemcpyAsync(X, A, (size_t)nb * b * b * sizeof(T), cudaMemcpyDeviceToDevice, s);
+  if (err != cudaSuccess) return (int)err;
+  const int n_panels = (b + kPanel - 1) / kPanel;
+  const int tiles = (b + kUTile - 1) / kUTile;
+  const unsigned panel_grid = (unsigned)nb * 2u * (unsigned)n_panels;
+  const unsigned update_grid = (unsigned)nb * (unsigned)tiles * (unsigned)tiles;
+  for (int pi = 0; pi < n_panels; ++pi) {
+    const int p0 = pi * kPanel, t = min(kPanel, b - p0);
+    gj_global_sweep<T><<<nb, kThreads, 0, s>>>(X, Dp, b, p0, t);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    if (n_panels == 1) break;
+    gj_global_panel<T><<<panel_grid, kGThreads, 0, s>>>(X, Rs, b, p0, t);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    gj_global_update<T><<<update_grid, kGThreads, 0, s>>>(X, Rs, b, p0, t);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -505,6 +704,17 @@ int block_ldlt_inv_f32(const void* A, void* Ainv, void* D, int nb, int b, int cs
 int block_ldlt_inv_f64(const void* A, void* Ainv, void* D, int nb, int b, int cs,
                        int smem, int device, void* stream) {
   return launch<double>(A, Ainv, D, nb, b, cs, smem, device, stream);
+}
+
+// The device-memory variant: R is a scratch buffer of (nb, 32, b) elements.
+int block_ldlt_inv_global_f32(const void* A, void* Ainv, void* D, void* R, int nb, int b,
+                              int device, void* stream) {
+  return launch_global<float>(A, Ainv, D, R, nb, b, device, stream);
+}
+
+int block_ldlt_inv_global_f64(const void* A, void* Ainv, void* D, void* R, int nb, int b,
+                              int device, void* stream) {
+  return launch_global<double>(A, Ainv, D, R, nb, b, device, stream);
 }
 
 

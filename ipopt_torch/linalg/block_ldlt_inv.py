@@ -6,10 +6,11 @@ algorithm the reference's BCR levels run, ``_gj_inv_auto``
 (``block_tridiag.py:366-370``): the scalar sweep ``_gj_inv_lanes`` for
 b <= 32, the panel-32 sweep ``_gj_inv_lanes_blocked`` (``:299-349``) above.
 The unpivoted Gauss-Jordan pivot at step k equals the k-th LDL^T pivot, so
-one sweep gives the inverse and the inertia.  On the chained main path every
-BCR level and the root factor their eliminated blocks with one launch:
+one sweep gives the inverse and the inertia.  Every BCR level and the root
+factor their eliminated blocks with one launch: on the chained path
 (64, 156, 156) float64 first, then 32, 16, ..., 1 blocks and the root, eight
-launches per factorization.
+launches per factorization; on the banded path of LuksanVlcek1 at n = 1e5
+(6250, 16, 16) first, fifteen launches per factorization.
 
 - ``block_ldlt_inv_plain(A)``: the plain PyTorch version (scalar loop over k
   on the whole (nb, b, b) tensor for b <= 32; panels of 32 with
@@ -20,15 +21,21 @@ launches per factorization.
   to the hand-written kernel ``csrc/block_ldlt_inv.cu`` or raises.  There is
   no fallback from the kernel to the plain version.
   ``block_ldlt_inv.launches`` counts the kernel launches.
-- ``plan(nb, b, dtype)``: the kernel's launch plan (one thread-block cluster
-  of ``cs`` CTAs per block, each CTA holding a strip of whole panels of rows
-  in shared memory); ``MAX_B[dtype]`` is the largest b it can plan.
+- ``plan(nb, b, dtype)``: the kernel's launch plan.  Up to
+  ``CLUSTER_MAX_B[dtype]`` (416 in float64, 576 in float32) the cluster
+  variant: one thread-block cluster of ``cs`` CTAs per block, each CTA
+  holding a strip of whole panels of rows in shared memory.  Above, the
+  device-memory variant: the block stays in the output buffer and each panel
+  step is three launches over all the blocks (the sweep of the panel, the
+  panel's row and column products, the rank-32 update), so every b runs on
+  the card.
 
 What bounds the kernel on an H100: at (64, 156, 156) float64 the function
 needs b^3 multiply-adds per block (486 M flops per launch, 7.3 us at the
 67 TFLOP/s of the FP64 tensor cores) against 25 MB moved (7.5 us at
-3.35 TB/s): bytes, barely.  See the source note in ``csrc/block_ldlt_inv.cu``
-for the design.  No PyTorch call computes this function:
+3.35 TB/s): bytes, barely; at (6250, 16, 16) bytes (26.4 MB, 7.9 us); at
+(20, 1288, 1288) operations (85.5 GFLOP, 1.28 ms).  See the source note in
+``csrc/block_ldlt_inv.cu`` for the design.  No PyTorch call computes this function:
 ``torch.linalg.inv`` pivots and gives no pivot sequence, and
 ``torch.linalg.ldl_factor`` pivots (Bunch-Kaufman).
 """
@@ -53,12 +60,16 @@ NUM_SMS = cuda_lib.NUM_SMS
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_void_p]
+# the device-memory variant: A, Ainv, d, the scratch R, nb, b, device, stream
+_GLOBAL_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 class Plan(NamedTuple):
     cs: int                 # CTAs per cluster, one cluster per block
     rows: Tuple[int, ...]   # rows of the block each CTA holds, in order
     smem: int               # dynamic shared bytes per CTA
+    variant: str = "cluster"  # or "global": the block in device memory
 
 
 def _strip_panels(n_panels: int, cs: int):
@@ -79,19 +90,20 @@ def _smem(b: int, cs: int, esize: int) -> int:
 
 
 def plan(nb: int, b: int, dtype) -> Plan:
-    """The launch plan of ``nb`` blocks of width ``b``: the smallest cluster
-    whose strips fit one CTA's shared memory, widened while the launch fits
-    the card's SMs (nb * cs <= 132), a CTA still holds a panel and the
-    cluster stays portable (<= 8), to the smallest cluster whose strips are
-    the shortest those bounds allow.  Raises if no cluster fits."""
+    """The launch plan of ``nb`` blocks of width ``b``.  Cluster variant:
+    the smallest cluster whose strips fit one CTA's shared memory, widened
+    while the launch fits the card's SMs (nb * cs <= 132), a CTA still holds
+    a panel and the cluster stays portable (<= 8), to the smallest cluster
+    whose strips are the shortest those bounds allow.  Above
+    ``CLUSTER_MAX_B`` the device-memory variant (``rows`` the whole block,
+    ``smem`` the panel sweep's two 32 x 32 tiles)."""
     esize = torch.finfo(dtype).bits // 8
     n_panels = -(-b // PANEL)
+    if b > CLUSTER_MAX_B[dtype]:
+        return Plan(cs=1, rows=(b,), smem=2 * PANEL * PANEL * esize, variant="global")
     cs = 1
     while _smem(b, cs, esize) > cuda_lib.SMEM_BYTES:
         cs += 1
-        if cs > min(MAX_CLUSTER, n_panels):
-            raise ValueError(f"block_ldlt_inv: b = {b} does not fit a cluster of "
-                             f"{MAX_CLUSTER} CTAs in {dtype}")
     widest = max(cs, min(MAX_CLUSTER, n_panels, NUM_SMS // max(nb, 1)))
     shortest = -(-n_panels // widest)
     while -(-n_panels // cs) > shortest:
@@ -102,17 +114,18 @@ def plan(nb: int, b: int, dtype) -> Plan:
 
 
 def _max_block(esize: int) -> int:
-    """The largest b the kernel takes: whole panels, each CTA of the widest
-    portable cluster holding its strip (the shared bytes grow with the
-    panel count)."""
+    """The largest b of the cluster variant: whole panels, each CTA of the
+    widest portable cluster holding its strip (the shared bytes grow with
+    the panel count)."""
     n = 1
     while _smem(PANEL * (n + 1), min(MAX_CLUSTER, n + 1), esize) <= cuda_lib.SMEM_BYTES:
         n += 1
     return PANEL * n
 
 
-# Largest b per dtype: 416 in float64, 576 in float32.
-MAX_B = {dt: _max_block(torch.finfo(dt).bits // 8) for dt in (torch.float32, torch.float64)}
+# Largest b of the cluster variant per dtype: 416 in float64, 576 in float32.
+CLUSTER_MAX_B = {dt: _max_block(torch.finfo(dt).bits // 8)
+                 for dt in (torch.float32, torch.float64)}
 
 
 def _gj_sweep(A: torch.Tensor):
@@ -162,14 +175,17 @@ def block_ldlt_inv_plain(A: torch.Tensor):
 
 def _library():
     return cuda_lib.load("block_ldlt_inv", {"block_ldlt_inv_f32": _ARGTYPES,
-                                            "block_ldlt_inv_f64": _ARGTYPES})
+                                            "block_ldlt_inv_f64": _ARGTYPES,
+                                            "block_ldlt_inv_global_f32": _GLOBAL_ARGTYPES,
+                                            "block_ldlt_inv_global_f64": _GLOBAL_ARGTYPES})
 
 
 def block_ldlt_inv(A: torch.Tensor):
     """Batched pivots + inverse: A (nb, b, b) -> (d (nb, b), Ainv (nb, b, b)).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel (the
+    variant ``plan`` names) or raise; the device-memory variant raises only
+    when its tensors do not fit the card's memory."""
     if A.dim() != 3 or A.shape[1] != A.shape[2]:
         raise ValueError(f"block_ldlt_inv expects (nb, b, b), got {tuple(A.shape)}")
     if A.dtype not in (torch.float32, torch.float64):
@@ -181,19 +197,24 @@ def block_ldlt_inv(A: torch.Tensor):
     if not A.is_contiguous():
         raise ValueError("block_ldlt_inv: A must be contiguous")
     nb, b, _ = A.shape
-    if b > MAX_B[A.dtype]:
-        raise ValueError(f"block_ldlt_inv: b = {b} exceeds the kernel's limit "
-                         f"{MAX_B[A.dtype]} for {A.dtype}")
     Ainv = torch.empty_like(A)
     d = torch.empty((nb, b), dtype=A.dtype, device=A.device)
     if nb == 0 or b == 0:
         return d, Ainv
     pl = plan(nb, b, A.dtype)
     lib = _library()
-    fn = lib.block_ldlt_inv_f64 if A.dtype == torch.float64 else lib.block_ldlt_inv_f32
+    f64 = A.dtype == torch.float64
     dev = A.device.index if A.device.index is not None else torch.cuda.current_device()
-    err = fn(A.data_ptr(), Ainv.data_ptr(), d.data_ptr(), nb, b, pl.cs, pl.smem,
-             dev, torch.cuda.current_stream(A.device).cuda_stream)
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    if pl.variant == "global":
+        R = torch.empty((nb, PANEL, b), dtype=A.dtype, device=A.device)
+        fn = lib.block_ldlt_inv_global_f64 if f64 else lib.block_ldlt_inv_global_f32
+        err = fn(A.data_ptr(), Ainv.data_ptr(), d.data_ptr(), R.data_ptr(), nb, b,
+                 dev, stream)
+    else:
+        fn = lib.block_ldlt_inv_f64 if f64 else lib.block_ldlt_inv_f32
+        err = fn(A.data_ptr(), Ainv.data_ptr(), d.data_ptr(), nb, b, pl.cs, pl.smem,
+                 dev, stream)
     if err != 0:
         raise RuntimeError(f"block_ldlt_inv kernel launch failed: CUDA error {err}")
     block_ldlt_inv.launches += 1

@@ -1,7 +1,10 @@
 """Model library of the port: the HS071 problem and the family the batched
 benchmark solves (``bench.py:121-133``), LuksanVlcek1 as a plain NLP for the
-dense backend (``tests/problems.py:146``), and the chained LuksanVlcek1 and
-1-D boundary-control problems (``bench.py:302-314``, ``tests/test_chained.py``).
+dense backend (``tests/problems.py:146``), the chained LuksanVlcek1 and 1-D
+boundary-control problems (``bench.py:302-314``, ``tests/test_chained.py``),
+and the flat problems with declared sparsity of the banded backend,
+LuksanVlcek1 and the 2-D Mittelmann distributed control
+(``bench.py:247-299``).
 Port of the part of ``ipopt_tpu/modellib.py`` on the ported paths; the other
 models come with the slices that use them.
 
@@ -180,3 +183,143 @@ def mittelmann_bndry_control_1d(N: int, v: int = 0) -> ChainedNLP:
         f_stage=_BndryControlObjective(h), g_stage=_BndryControlPDE(h),
         f_last=_BndryControlTerminal(h), theta=theta, x0=np.full((K + 1, v), 0.3),
         g_L=g_L, g_U=g_U, x_L=x_L, x_U=x_U, name=f"mittelmann1d_N{N}_v{v}")
+
+
+def band_sparsity(m: int, n: int, lo_off: int, hi_off: int):
+    """COO pattern (rows, cols) of a banded (m, n) matrix whose row i covers
+    the columns i + lo_off .. i + hi_off (clipped), to declare a Jacobian or
+    Hessian pattern for ``linear_solver="banded-bcr"``
+    (``ipopt_tpu/modellib.py:245``)."""
+    rows = []
+    cols = []
+    for off in range(lo_off, hi_off + 1):
+        i = np.arange(max(0, -off), min(m, n - off), dtype=np.int32)
+        rows.append(i)
+        cols.append(i + np.int32(off))
+    return np.concatenate(rows), np.concatenate(cols)
+
+
+def luksan_vlcek1_flat(n: int) -> NLP:
+    """LuksanVlcek1 as one flat NLP with its declared sparsity, for the
+    banded backend (``ipopt_tpu/modellib.py:97-126``): the Jacobian's row i
+    covers x_i..x_{i+2} (m = n - 2 equalities), the Lagrangian Hessian has
+    bandwidth 2.  Solve it with ``linear_solver="banded-bcr"``."""
+    if n < 4:
+        raise ValueError(f"need n >= 4, got {n}")
+    m = n - 2
+    x0 = np.full(n, -1.0)
+    x0[1::2] = 1.0
+    return NLP(f=_rosen, g=_lv1_g, g_L=np.zeros(m), g_U=np.zeros(m), x0=x0,
+               jac_g_sparsity=band_sparsity(m, n, 0, 2),
+               lag_hess_sparsity=band_sparsity(n, n, -2, 2),
+               name=f"luksan_vlcek1_flat{n}")
+
+
+class _DeviceConstant:
+    """A numpy constant as a tensor on the device and dtype of each call's
+    argument, made once per (device, dtype)."""
+
+    def __init__(self, value: np.ndarray):
+        self.value = value
+        self._cache = {}
+
+    def like(self, x: torch.Tensor) -> torch.Tensor:
+        key = (str(x.device), x.dtype)
+        t = self._cache.get(key)
+        if t is None:
+            t = torch.as_tensor(self.value, dtype=x.dtype, device=x.device)
+            self._cache[key] = t
+        return t
+
+
+def mittelmann_dist_control(N: int) -> NLP:
+    """MittelmannDistCntrlNeumA1 (``ipopt_tpu/modellib.py:489-590``;
+    examples/ScalableProblems/MittelmannDistCntrlNeumA.hpp:413-439): 2-D
+    elliptic distributed control with Neumann boundary conditions,
+
+        min  hh sum_int 0.5 ((y_ij - yd)^2 + alpha u_ij^2)
+        s.t. 4 y_ij - y_nbrs + hh (-exp(y_ij) - u_ij) = 0   (interior PDE)
+             (1 + h b) y_bnd - y_adj = 0                    (Neumann rows)
+             y <= 0.371,  -8 <= u <= 9
+
+    with yd = sin(2 pi x1) sin(2 pi x2), alpha = 0.001, b = 1, on an
+    (N+2)^2 grid with N^2 interior controls: x = [Y | U].  Its Jacobian and
+    Hessian patterns are declared, built in numpy as the reference builds
+    them; RCM recovers the O(N) bandwidth.  Solve it with
+    ``linear_solver="banded-bcr"``."""
+    Ng = N + 2
+    h = 1.0 / (N + 1)
+    hh = h * h
+    alpha = 0.001
+    b = 1.0
+    ny = Ng * Ng
+    n = ny + N * N
+
+    def yi(i, j):
+        return i * Ng + j
+
+    ii, jj = np.meshgrid(np.arange(1, N + 1), np.arange(1, N + 1), indexing="ij")
+    x1 = ii.astype(np.float64) * h
+    x2 = jj.astype(np.float64) * h
+    yd = _DeviceConstant(
+        (np.sin(2.0 * np.pi * x1) * np.sin(2.0 * np.pi * x2)).reshape(-1))
+
+    def f(x):
+        Y = x[:ny].reshape(Ng, Ng)
+        u = x[ny:]
+        y_int = Y[1:-1, 1:-1].reshape(-1)
+        return hh * (0.5 * ((y_int - yd.like(x)) ** 2 + alpha * u ** 2)).sum()
+
+    def g(x):
+        Y = x[:ny].reshape(Ng, Ng)
+        u = x[ny:].reshape(N, N)
+        yc = Y[1:-1, 1:-1]
+        pde = (4.0 * yc - Y[:-2, 1:-1] - Y[2:, 1:-1]
+               - Y[1:-1, :-2] - Y[1:-1, 2:]
+               + hh * (-torch.exp(yc) - u))
+        nbr = [(1.0 + h * b) * Y[1:-1, 0] - Y[1:-1, 1],      # j = 0 side
+               (1.0 + h * b) * Y[1:-1, -1] - Y[1:-1, -2],    # j = N+1
+               (1.0 + h * b) * Y[0, 1:-1] - Y[1, 1:-1],      # i = 0
+               (1.0 + h * b) * Y[-1, 1:-1] - Y[-2, 1:-1]]    # i = N+1
+        return torch.cat([pde.reshape(-1)] + nbr)
+
+    m = N * N + 4 * N
+    jr, jc = [], []
+    r = 0
+    for i in range(1, N + 1):
+        for j in range(1, N + 1):
+            for (a, bb) in ((i, j), (i - 1, j), (i + 1, j), (i, j - 1), (i, j + 1)):
+                jr.append(r)
+                jc.append(yi(a, bb))
+            jr.append(r)
+            jc.append(ny + (i - 1) * N + (j - 1))
+            r += 1
+    for i in range(1, N + 1):                    # j = 0 side
+        jr += [r, r]
+        jc += [yi(i, 0), yi(i, 1)]
+        r += 1
+    for i in range(1, N + 1):                    # j = N+1
+        jr += [r, r]
+        jc += [yi(i, Ng - 1), yi(i, Ng - 2)]
+        r += 1
+    for j in range(1, N + 1):                    # i = 0
+        jr += [r, r]
+        jc += [yi(0, j), yi(1, j)]
+        r += 1
+    for j in range(1, N + 1):                    # i = N+1
+        jr += [r, r]
+        jc += [yi(Ng - 1, j), yi(Ng - 2, j)]
+        r += 1
+    assert r == m
+    diag = np.arange(n, dtype=np.int32)
+
+    x_L = np.full(n, -1e20)
+    x_U = np.full(n, np.inf)
+    x_U[:ny] = 0.371
+    x_L[ny:] = -8.0
+    x_U[ny:] = 9.0
+    x0 = np.zeros(n)
+    x0[ny:] = 0.5 * (-8.0 + 9.0)
+    return NLP(f=f, g=g, g_L=np.zeros(m), g_U=np.zeros(m), x_L=x_L, x_U=x_U, x0=x0,
+               jac_g_sparsity=(np.asarray(jr, np.int32), np.asarray(jc, np.int32)),
+               lag_hess_sparsity=(diag, diag), name=f"mittelmann_dist_control_N{N}")

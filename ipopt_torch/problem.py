@@ -37,6 +37,11 @@ class NLP:
     ``f`` and ``g`` take one instance's x (a 1-D tensor); ``g`` returns a 1-D
     tensor (build it with ``torch.stack``).  With ``params`` set, they take
     ``(x, params)`` and ``params`` may differ per instance of a batch.
+    ``jac_g_sparsity`` and ``lag_hess_sparsity`` optionally declare the
+    (rows, cols) COO patterns of dg/dx and of the Lagrangian Hessian (either
+    triangle or full) for ``linear_solver="banded-bcr"``
+    (``ipopt_torch.sparse``); without them that backend detects the patterns
+    of a small problem.  ``canonicalize`` ignores them.
     """
 
     f: Callable[..., Any]
@@ -47,6 +52,8 @@ class NLP:
     g_L: Optional[Any] = None
     g_U: Optional[Any] = None
     params: Optional[Any] = None
+    jac_g_sparsity: Optional[Any] = None
+    lag_hess_sparsity: Optional[Any] = None
     name: str = "nlp"
 
 

@@ -2,12 +2,15 @@
 
     python3 -m ipopt_torch.profile_main            # HS071 family, dense (K1)
     python3 -m ipopt_torch.profile_main chained    # LuksanVlcek1 4096/32 (K2)
+    python3 -m ipopt_torch.profile_main banded     # LuksanVlcek1 flat 1e5 (K2)
 
 The first stacks the 512-instance HS071 family on the card and solves it
 with ``solve_batched``; the second solves ``luksan_vlcek1(4096, 32)`` (128
-blocks of 156, block cyclic reduction) with ``solve``.  Both run in float64
-with the options of ``bench.py:74-80``: once to warm up, then once under
-``cProfile`` and once under ``torch.profiler``, and print:
+blocks of 156, block cyclic reduction) with ``solve``; the third solves
+``luksan_vlcek1_flat(100_000)`` with ``linear_solver="banded-bcr"`` (12,500
+blocks of 16 after RCM).  All run in float64 with the options of
+``bench.py:74-80``: once to warm up, then once under ``cProfile`` and once
+under ``torch.profiler``, and print:
 - the card (``nvidia-smi`` name and power limit), the warm wall time and,
   for the chained path, ms per iteration;
 - host time by solver function (cumulative seconds, from cProfile);
@@ -19,8 +22,12 @@ with the options of ``bench.py:74-80``: once to warm up, then once under
   the solve: for HS071, K1's time per wrapper call and its device time per
   launch (torch.profiler) on those inputs; for the chained path, K2 also on
   seeded (64, 156, 156) blocks and on the solve's own first-level blocks;
-  with the SM clock and power draw that ``nvidia-smi`` sampled every 50 ms
-  inside each window (about 2 s of calls back to back).
+  for the banded path, K2 on the solve's own first-level blocks; with the
+  SM clock and power draw that ``nvidia-smi`` sampled every 50 ms inside
+  each window (about 2 s of calls back to back).
+The banded path then solves ``luksan_vlcek1_flat(1_000_000)`` (125,000
+blocks of 16) once cold and once warm, and prints its set-up time, warm
+wall, ms per iteration and peak device memory (a measurement, not a gate).
 It needs a CUDA device.
 """
 from __future__ import annotations
@@ -35,6 +42,7 @@ import time
 import torch
 
 from . import Options, canonicalize_chained, modellib, solve, solve_batched, stack_problems
+from .sparse import canonicalize_sparse
 from .linalg import block_ldlt as bl
 from .linalg import block_ldlt_inv as k2
 from .linalg import block_tridiag
@@ -49,7 +57,9 @@ FUNCS = ("solve_canonical", "initial_state", "_ipm_step_impl", "compute_hessian"
          "try_soc", "_eval_theta_phi", "perform_restoration", "finalize",
          "stage_hessians", "stage_jacobians", "chained_factorize_kkt",
          "assemble_btd", "bcr_factorize", "block_ldlt_inv", "chained_solve_refined",
-         "bcr_solve", "eval_jac_t")
+         "bcr_solve", "eval_jac_t", "canonicalize_sparse", "sparse_hessian_values",
+         "jacobian_values", "banded_factorize_kkt", "assemble_banded",
+         "add_diag_deltas")
 
 
 def _device_us(e):
@@ -161,9 +171,21 @@ def capture_k2_inputs(run):
     return _capture(block_tridiag, "block_ldlt_inv", run)
 
 
+BANDED_N, BANDED_BIG_N = 100_000, 1_000_000
+# K2 launches per factorization at BANDED_N: 14 BCR levels of 12,500 blocks and the root
+BANDED_K2_PER_FACTORIZATION = 15
+
+
 def _setup(mode, dev):
     """(run, kernel counter, kernel name pattern) of the path ``mode``."""
     t0 = time.perf_counter()
+    if mode == "banded":
+        nlp = canonicalize_sparse(modellib.luksan_vlcek1_flat(BANDED_N),
+                                  Options(linear_solver="banded-bcr", **OPTS), device=dev)
+        print(f"set-up (canonicalize_sparse) n={BANDED_N}: "
+              f"{time.perf_counter() - t0:.3f} s, {nlp.chain.nb} blocks of {nlp.chain.b}")
+        return ((lambda: solve(nlp, device=dev, linear_solver="banded-bcr", **OPTS)),
+                k2.block_ldlt_inv, "gj_")
     if mode == "chained":
         nlp = canonicalize_chained(modellib.luksan_vlcek1(4096, 32), Options(**OPTS),
                                    device=dev)
@@ -180,8 +202,8 @@ def _setup(mode, dev):
 def main(mode="hs071"):
     if not torch.cuda.is_available():
         raise SystemExit("profile_main: no CUDA device")
-    if mode not in ("hs071", "chained"):
-        raise SystemExit(f"profile_main: unknown path {mode!r} (hs071 or chained)")
+    if mode not in ("hs071", "chained", "banded"):
+        raise SystemExit(f"profile_main: unknown path {mode!r} (hs071, chained or banded)")
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -239,7 +261,7 @@ def main(mode="hs071"):
     mine = [e for e in events if pattern in e.key and "kernel" in e.key]
     if mine and launches:
         t = sum(_device_us(e) for e in mine)
-        print(f"{'K2' if mode == 'chained' else 'K1'} device time: "
+        print(f"{'K1' if mode == 'hs071' else 'K2'} device time: "
               f"{t / launches:.2f} us per launch over {launches} launches "
               f"({t / 1e3:.3f} ms in all)")
     if mode == "chained":
@@ -255,6 +277,18 @@ def main(mode="hs071"):
             ms, n, clk = _back_to_back(k2.block_ldlt_inv, blocks)
             print(f"K2 back to back on {name}: {ms * 1e3:.2f} us per launch "
                   f"(CUDA events, {n} launches); {clk}")
+    elif mode == "banded":
+        inputs = capture_k2_inputs(run)
+        first = inputs[0::BANDED_K2_PER_FACTORIZATION]
+        for name, blocks in (
+                (f"the solve's own first-level blocks, {len(first)} x "
+                 f"{tuple(first[0].shape)}", first),
+                (f"all {len(inputs)} of the solve's inputs, in its order", inputs)):
+            ms, n, clk = _back_to_back(k2.block_ldlt_inv, blocks)
+            print(f"K2 back to back on {name}: {ms * 1e3:.2f} us per launch "
+                  f"(CUDA events, {n} launches); {clk}")
+        del inputs, first
+        _banded_big(dev)
     else:
         inputs = capture_k1_inputs(run)
         shapes = sorted({tuple(A.shape) for A in inputs})
@@ -265,6 +299,34 @@ def main(mode="hs071"):
               f"{ms * 1e3:.2f} us per wrapper call (CUDA events, {n} calls; the "
               f"host's cost per call included); {us:.2f} us device time per launch "
               f"(torch.profiler, {n_dev} launches); {clk}")
+
+
+def _banded_big(dev):
+    """luksan_vlcek1_flat(1e6) through the banded backend: set-up, a cold
+    and a warm solve, the warm solve's peak device memory."""
+    t0 = time.perf_counter()
+    nlp = canonicalize_sparse(modellib.luksan_vlcek1_flat(BANDED_BIG_N),
+                              Options(linear_solver="banded-bcr", **OPTS), device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    info = nlp.chain
+    t0 = time.perf_counter()
+    solve(nlp, device=dev, linear_solver="banded-bcr", **OPTS)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = solve(nlp, device=dev, linear_solver="banded-bcr", **OPTS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    iters = int(res.iter_count)
+    print(f"banded n={BANDED_BIG_N}: {info.nb} blocks of {info.b}; set-up "
+          f"(canonicalize_sparse) {setup_s:.3f} s; cold solve {cold_s:.3f} s; warm solve "
+          f"{wall:.3f} s, status {int(res.status)}, {iters} iterations "
+          f"({wall / max(iters, 1) * 1e3:.1f} ms/iteration), "
+          f"{res.batched_factorizations} factorizations, objective {float(res.obj)!r}; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
 
 
 if __name__ == "__main__":

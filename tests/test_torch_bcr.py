@@ -171,6 +171,8 @@ def test_no_port_module_imports_jax():
     for root, _, files in os.walk(os.path.join(REPO, "ipopt_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(paths) > 20
+    rel = {os.path.relpath(p, REPO) for p in paths}
+    assert {"ipopt_torch/sparse.py", "ipopt_torch/algorithm/banded_resto.py"} <= rel
     bad = [(os.path.relpath(p, REPO), m) for p in paths for m in _imports(p)
            if m.split(".")[0] in ("jax", "jaxlib", "ipopt_tpu")]
     assert not bad, bad
@@ -199,3 +201,27 @@ def test_kernel_matches_plain_on_cuda(cuda, nb, b):
         scale = max(1.0, float(Ainv_p[1:].abs().max()))
         assert float((Ainv - Ainv_p).abs().max()) <= 1e-11 * scale
         torch.testing.assert_close(d, d_p, rtol=1e-10, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb,b,dtype", [(3, 417, torch.float64), (2, 1288, torch.float64),
+                                        (3, 577, torch.float32)])
+def test_device_memory_variant_matches_plain_on_cuda(cuda, nb, b, dtype):
+    """Above the cluster variant's widths K2 runs with the block in device
+    memory: the same panel-32 sweep, the products on the FP64 tensor cores
+    (IEEE FFMA in float32), so the tolerances of the cluster variant; block
+    0 has a guarded (+-tiny) pivot."""
+    from ipopt_torch.linalg.block_ldlt_inv import plan
+    assert plan(nb, b, dtype).variant == "global"
+    A = torch.as_tensor(quasi_definite_kkt(np.random.default_rng(b), nb, b),
+                        device=cuda).to(dtype)
+    before = block_ldlt_inv.launches
+    d, Ainv = block_ldlt_inv(A)
+    torch.cuda.synchronize()
+    assert block_ldlt_inv.launches == before + 1
+    d_p, Ainv_p = block_ldlt_inv_plain(A)
+    tol_inv, tol_d = (1e-11, 1e-10) if dtype == torch.float64 else (1e-4, 1e-4)
+    scale = max(1.0, float(Ainv_p[1:].abs().max()))
+    assert float((Ainv - Ainv_p).abs().max()) <= tol_inv * scale
+    torch.testing.assert_close(d, d_p, rtol=tol_d, atol=0)
+    assert bool((d_p[0].abs() <= torch.finfo(dtype).tiny).any())

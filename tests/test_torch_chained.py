@@ -302,26 +302,25 @@ def test_chained_solve_defaults_to_cuda(monkeypatch):
         ipopt_torch.solve_batched([modellib.luksan_vlcek1(16, 2)])
 
 
-def test_chained_restoration_refuses_wide_blocks_on_cuda():
-    """The restoration blocks are v + 4 mk wide: LuksanVlcek1 at v = 32
-    (mk = 62) has 280, which K2 takes in float64 (up to 416); wider ones are
-    refused before any restoration work, and only on CUDA."""
-    from ipopt_torch.algorithm.chained_resto import check_resto_block_width
-
-    def info(v, mk):
-        return port_chained.ChainInfo(K=4, v=v, mk=mk, f_stage=None, g_stage=None,
-                                      f_last=None, eq_mask=np.ones((4, mk), bool))
-
-    cuda = torch.device("cuda")
-    check_resto_block_width(info(32, 62), torch.float64, cuda)
-    with pytest.raises(NotImplementedError, match="432-wide"):
-        check_resto_block_width(info(32, 100), torch.float64, cuda)
-    check_resto_block_width(info(32, 100), torch.float64, torch.device("cpu"))
-    check_resto_block_width(info(4, 2), torch.float64, cuda)
-    # 512 wide: above the float64 limit, within the float32 one (576)
-    with pytest.raises(NotImplementedError, match="512-wide"):
-        check_resto_block_width(info(32, 120), torch.float64, cuda)
-    check_resto_block_width(info(32, 120), torch.float32, cuda)
+@pytest.mark.parametrize("b,dtype", [
+    (417, torch.float64), (496, torch.float64), (568, torch.float64),
+    (892, torch.float64), (1288, torch.float64), (577, torch.float32),
+    (1288, torch.float32)])
+def test_chained_restoration_refuses_wide_blocks_on_cuda(b, dtype):
+    """K2's plan covers every block width the reference's BCR factors, so no
+    chained restoration is refused on the card: LuksanVlcek1 (1000, 100) has
+    496-wide KKT blocks, (4096, 64) a 568-wide restoration, Mittelmann
+    N = 100's restoration analyzes to b = 1288.  Above the cluster variant's
+    widths the plan names the device-memory variant, which holds the whole
+    block."""
+    from ipopt_torch.algorithm import chained_resto
+    from ipopt_torch.linalg import block_ldlt_inv as k2
+    assert not hasattr(chained_resto, "check_resto_block_width")
+    assert b > k2.CLUSTER_MAX_B[dtype]
+    for nb in (1, 20, 12500):
+        pl = k2.plan(nb, b, dtype)
+        assert (pl.variant, pl.cs, pl.rows) == ("global", 1, (b,))
+        assert pl.smem == 2 * k2.PANEL * k2.PANEL * torch.finfo(dtype).bits // 8
 
 
 @pytest.mark.gpu

@@ -255,7 +255,7 @@ def test_solve_without_device_needs_cuda(monkeypatch):
 
 @pytest.mark.parametrize("opt", [
     dict(mu_strategy="adaptive"), dict(hessian_approximation="limited-memory"),
-    dict(linear_solver="banded-bcr"), dict(line_search_method="cg-penalty"),
+    dict(linear_solver="multifrontal"), dict(line_search_method="cg-penalty"),
     dict(inexact_algorithm=True), dict(mehrotra_algorithm=True)])
 def test_unported_option_rejected(opt):
     with pytest.raises(UnsupportedOptionError):

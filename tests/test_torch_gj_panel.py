@@ -156,13 +156,16 @@ def test_plan_fits_and_covers_every_row(nb, b, dtype, cs):
 
 
 def test_max_block_from_the_plan():
-    assert k2.MAX_B[torch.float64] >= 408
+    """The cluster variant's widest b fits shared memory; one column more
+    goes to the device-memory variant, whose plan holds the whole block."""
+    assert k2.CLUSTER_MAX_B[torch.float64] >= 408
     for dtype in (torch.float64, torch.float32):
-        top = k2.MAX_B[dtype]
+        top = k2.CLUSTER_MAX_B[dtype]
         assert k2.plan(1, top, dtype).smem <= cuda_lib.SMEM_BYTES
-        with pytest.raises(ValueError):
-            k2.plan(1, top + 1, dtype)
-    assert k2.MAX_B[torch.float32] > k2.MAX_B[torch.float64]
+        assert k2.plan(1, top, dtype).variant == "cluster"
+        pl = k2.plan(1, top + 1, dtype)
+        assert (pl.variant, pl.cs, pl.rows) == ("global", 1, (top + 1,))
+    assert k2.CLUSTER_MAX_B[torch.float32] > k2.CLUSTER_MAX_B[torch.float64]
 
 
 def test_capture_k2_inputs_sees_every_launch():
