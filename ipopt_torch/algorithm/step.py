@@ -223,15 +223,14 @@ def solve_any(nlp: CanonicalNLP, opts: Options, fac, K, parts):
     """Solve the factorized augmented system for the four RHS blocks;
     returns ((dx, ds, dy_c, dy_d), residual_ratio)."""
     be = _backend(nlp)
-    if be == "btd":
-        from .chained_kkt import pack_rhs, unpack_sol, chained_solve_refined
-        sol, rr = chained_solve_refined(K, fac, pack_rhs(nlp, *parts), opts)
-        return unpack_sol(nlp, sol), rr
-    if be == "banded":
-        from ..sparse import pack_rhs_banded, unpack_sol_banded
+    if be in ("btd", "banded"):
         from .chained_kkt import chained_solve_refined
-        sol, rr = chained_solve_refined(K, fac, pack_rhs_banded(nlp, *parts), opts)
-        return unpack_sol_banded(nlp, sol), rr
+        if be == "btd":
+            from .chained_kkt import pack_rhs as pack, unpack_sol as unpack
+        else:
+            from ..sparse import pack_rhs_banded as pack, unpack_sol_banded as unpack
+        sol, rr = chained_solve_refined(K, fac, pack(nlp, *parts), opts)
+        return unpack(nlp, sol), rr
     rhs = torch.cat(parts, dim=-1)
     sol, rr = solve_with_refinement(K, fac, rhs, opts)
     return split_aug_solution(sol, nlp.n, nlp.mi, nlp.me), rr

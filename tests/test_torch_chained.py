@@ -307,8 +307,9 @@ def test_chained_solve_defaults_to_cuda(monkeypatch):
     (892, torch.float64), (1288, torch.float64), (577, torch.float32),
     (1288, torch.float32)])
 def test_chained_restoration_refuses_wide_blocks_on_cuda(b, dtype):
-    """K2's plan covers every block width the reference's BCR factors, so no
-    chained restoration is refused on the card: LuksanVlcek1 (1000, 100) has
+    """Nothing is refused any more (the name is the old test's): K2's plan
+    covers every block width the reference's BCR factors, so no chained
+    restoration is refused on the card: LuksanVlcek1 (1000, 100) has
     496-wide KKT blocks, (4096, 64) a 568-wide restoration, Mittelmann
     N = 100's restoration analyzes to b = 1288.  Above the cluster variant's
     widths the plan names the device-memory variant, which holds the whole

@@ -327,6 +327,51 @@ def test_capture_k2_inputs_on_the_banded_path():
     assert [tuple(A.shape) for A in inputs] == shapes * res[0].batched_factorizations
 
 
+def _backward_error(A, X):
+    """Normwise backward error of an inverse per block:
+    ||A X - I|| / (||A|| ||X||) in the infinity norm."""
+    eye = torch.eye(A.shape[-1], dtype=A.dtype)
+    ninf = lambda M: torch.linalg.matrix_norm(M, ord=float("inf"))
+    return ninf(A @ X - eye) / (ninf(A) * ninf(X)).clamp(min=1e-300)
+
+
+def test_unpivoted_sweep_on_mittelmann_blocks_is_the_reference_s():
+    """Mittelmann's KKT blocks are where the unpivoted sweep every BCR level
+    runs (the reference's ``_gj_inv_auto``) stops being backward stable:
+    at N = 12 (56-wide blocks) its normwise backward error reaches ~1e-9,
+    five orders above b eps, and two equally valid orders of the same sweep
+    (the port's plain version on A, and on A^T transposed back) differ by
+    ~6% in the inverse.  The port's plain version is held to the reference's
+    sweep the only way that means anything there: the same pivot signs, and
+    per block a backward error within 10x of the larger of the reference's
+    and the A^T order's (the same rule chip_smoke.py holds K2 to on the
+    card at N = 100)."""
+    from ipopt_torch.linalg import block_ldlt_inv as k2
+    from ipopt_torch.profile_main import capture_k2_inputs
+    from ipopt_tpu.linalg import block_tridiag as ref_bt
+    inputs = capture_k2_inputs(lambda: ipopt_torch.solve(
+        modellib.mittelmann_dist_control(12), device="cpu", print_level=0, max_iter=6,
+        **OPTS))
+    A = torch.cat([X for X in inputs if X.shape[0] > 1])
+    b = A.shape[-1]
+    assert b == 56
+    d_p, X_p = k2.block_ldlt_inv_plain(A)
+    d_t, X_t = k2.block_ldlt_inv_plain(A.transpose(1, 2).contiguous())
+    X_r, d_r = ref_bt._gj_inv_auto(jnp.asarray(A.numpy().transpose(1, 2, 0)))
+    X_r = torch.as_tensor(np.array(X_r).transpose(2, 0, 1))
+    d_r = torch.as_tensor(np.array(d_r).T)
+    be_p, be_t, be_r = (_backward_error(A, X) for X in (X_p, X_t.transpose(1, 2), X_r))
+    floor = b * torch.finfo(torch.float64).eps
+    # the finding: far from backward stable, and the orders disagree
+    assert float(be_r.max()) > 1e4 * floor and float(be_p.max()) > 1e4 * floor
+    spread = ((X_t.transpose(1, 2) - X_p).abs().amax((1, 2)) / X_p.abs().amax((1, 2)))
+    assert float(spread.max()) > 1e-3
+    # the port's plain version against the reference's sweep
+    torch.testing.assert_close(torch.sign(d_p), torch.sign(d_r), rtol=0, atol=0)
+    assert bool((be_p <= 10 * torch.clamp(torch.maximum(be_r, be_t), min=floor)).all())
+    assert bool((be_r <= 10 * torch.clamp(torch.maximum(be_p, be_t), min=floor)).all())
+
+
 def test_band_sparsity_matches_reference():
     for args in ((198, 200, 0, 2), (200, 200, -2, 2), (5, 3, -1, 1)):
         for a, b in zip(modellib.band_sparsity(*args), ref_models.band_sparsity(*args)):
@@ -343,3 +388,31 @@ def test_banded_solve_on_cuda_matches_cpu():
     assert (int(r_card.status), int(r_card.iter_count)) == (int(r_cpu.status),
                                                             int(r_cpu.iter_count))
     np.testing.assert_allclose(float(r_card.obj), float(r_cpu.obj), rtol=1e-10)
+
+
+def reference_mittelmann(N=100):
+    """The reference's float64 solve of ``mittelmann_dist_control(N)`` at
+    OPTS (restoration on) on JAX's default device; prints one JSON line with
+    its status, counts, objective and per-iteration trace."""
+    import json
+    import time
+    import jax
+    jax.config.update("jax_enable_x64", True)
+    rows, cb = _trace()
+    t0 = time.perf_counter()
+    res = ipopt_tpu.solve(ref_models.mittelmann_dist_control(N), print_level=0,
+                          intermediate_callback=cb, **OPTS)
+    obj = float(res.obj)
+    wall = time.perf_counter() - t0
+    print(json.dumps(dict(
+        N=N, device=str(jax.devices()[0]), jax=jax.__version__, options=OPTS,
+        status=int(res.status), iterations=int(res.iter_count),
+        factorizations=int(res.counters.n_factorizations),
+        restorations=int(res.restoration_count), objective=obj, wall_s=wall,
+        trace=[[float(v) for v in r] for r in rows])), flush=True)
+
+
+if __name__ == "__main__":
+    # python3 tests/test_torch_sparse.py [N]: the reference's Mittelmann solve
+    import sys
+    reference_mittelmann(int(sys.argv[1]) if len(sys.argv) > 1 else 100)
