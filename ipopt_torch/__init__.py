@@ -22,6 +22,9 @@ Quick start::
     rc = solve(modellib.luksan_vlcek1(4096, 32))        # chained, on the card
     rs = solve(modellib.luksan_vlcek1_flat(100_000),    # banded, on the card
                linear_solver="banded-bcr")
+    ra = solve(modellib.hs071(), mu_strategy="adaptive")  # adaptive mu
+    rw = solve(modellib.hs071(), it0=res.iterate,         # a warm start
+               warm_start_init_point=True, mu_init=1e-6)
 """
 
 from .types import Iterate, SolverReturn, ApplicationReturnStatus

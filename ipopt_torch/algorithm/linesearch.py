@@ -3,7 +3,9 @@
 Port of ``ipopt_tpu/algorithm/linesearch.py`` (Waechter-Biegler Algorithm A;
 ``IpFilterLSAcceptor.cpp``, ``IpBacktrackingLineSearch.cpp``): alpha_min by
 eq. (23), backtracking with filter acceptability, the switching condition and
-Armijo, second-order corrections and filter augmentation.  The filter is a
+Armijo, second-order corrections (both ``soc_method``s), a corrector's
+pre-trial, slack magic steps, ``accept_every_trial_step`` and
+``accept_after_max_steps``, and filter augmentation.  The filter is a
 fixed-capacity pair of (B, cap) tensors pre-filled with +inf.  The
 backtracking loop runs while any lane is still searching; a lane that is
 done keeps its carry, so its trial counters equal the reference's.
@@ -95,12 +97,37 @@ def _theta(c, d, s, norm_type: str = "1-norm"):
     return c.abs().sum(-1) + dms.abs().sum(-1)
 
 
+def magic_step(nlp: CanonicalNLP, s, d_t):
+    """Slack magic step (IpBacktrackingLineSearch.cpp:1003-1099): move s_i
+    toward d_i(x_trial), up for lower-bounded rows and down for upper-
+    bounded ones, except on two-sided rows where the move worsens the
+    centering distance |d_L + d_U - 2 s|."""
+    dms = d_t - s
+    zero = torch.zeros_like(dms)
+    delta = (torch.where(nlp.has_dL, torch.clamp(dms, min=0.0), zero)
+             + torch.where(nlp.has_dU, torch.clamp(dms, max=0.0), zero))
+    both = nlp.has_dL & nlp.has_dU
+    center_old = (nlp.d_L + nlp.d_U - 2.0 * s).abs()
+    center_new = (nlp.d_L + nlp.d_U - 2.0 * (s + delta)).abs()
+    delta = torch.where(both & (center_new > center_old), zero, delta)
+    return s + delta
+
+
 def _eval_theta_phi(nlp: CanonicalNLP, opts: Options, it_trial: Iterate, mu):
     f_t = nlp.eval_f(it_trial.x)
     c_t, d_t = nlp.eval_cd(it_trial.x)
     theta_t = _theta(c_t, d_t, it_trial.s, opts.constraint_violation_norm_type)
     phi_t = barrier_obj(nlp, it_trial, f_t, mu, opts.kappa_d)
     return f_t, c_t, d_t, theta_t, phi_t
+
+
+def _eval_trial_magic(nlp: CanonicalNLP, opts: Options, it_trial: Iterate, mu):
+    """``_eval_theta_phi`` after the optional magic step on the trial's
+    slacks (the moved s stays in the trial)."""
+    if opts.magic_steps:
+        it_trial = it_trial._replace(
+            s=magic_step(nlp, it_trial.s, nlp.eval_d(it_trial.x)))
+    return (it_trial,) + _eval_theta_phi(nlp, opts, it_trial, mu)
 
 
 def _trial_point(it: Iterate, step: Iterate, alpha, alpha_dual):
@@ -131,7 +158,12 @@ class _Carry(NamedTuple):
 
 def line_search(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
                 sr: StepResult, mu, tau, fs: FilterState,
-                theta_min, theta_max) -> LineSearchResult:
+                theta_min, theta_max, corr=None) -> LineSearchResult:
+    """One backtracking search per lane.  ``corr`` is a corrector's pre-trial
+    (FilterLSAcceptor::TryCorrector, IpFilterLSAcceptor.cpp:655-880): a
+    dict with ``trial``, ``alpha_pr``, ``alpha_du`` and ``active``.  It is
+    tested first, at the uncorrected first trial's step size; a lane that
+    accepts it does no backtracking."""
     dtype, dev = it.x.dtype, it.x.device
     B = it.x.shape[0]
     step = sr.step
@@ -176,8 +208,8 @@ def line_search(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
         return accept, ftype_case & armijo, ~in_filter
 
     def eval_trial(alpha):
-        it_t = _trial_point(it, step, alpha, alpha_dual)
-        return (it_t,) + _eval_theta_phi(nlp, opts, it_t, mu)
+        return _eval_trial_magic(nlp, opts, _trial_point(it, step, alpha, alpha_dual),
+                                 mu)
 
     def try_soc(alpha, c_t, d_t, it_t_s, lanes):
         """Second-order corrections (A-5.7) for the lanes ``lanes``: at most
@@ -189,11 +221,12 @@ def line_search(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
         theta_old = _theta(c_t, d_t, it_t_s, opts.constraint_violation_norm_type)
         active = lanes
         n_rounds = izero
+        alpha_soc = alpha
         for _ in range(opts.max_soc):
             if not bool(active.any()):
                 break  # nothing below changes a lane that is not active
             dsoc = soc_direction(nlp, opts, it, ev, sr.fac, sr.K, mu,
-                                 c_soc, dms_soc)
+                                 c_soc, dms_soc, alpha_soc)
             a_soc, _ = fraction_to_boundary(nlp, it, dsoc, tau)
             it_soc = _trial_point(it, dsoc, a_soc, alpha_dual)
             f_s, c_s, d_s, th_s, ph_s = _eval_theta_phi(nlp, opts, it_soc, mu)
@@ -206,6 +239,7 @@ def line_search(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
             c_soc = col(a_soc) * c_soc + c_s
             dms_soc = col(a_soc) * dms_soc + (d_s - it_soc.s)
             theta_old = th_s
+            alpha_soc = a_soc
             n_rounds = n_rounds + active.long()
             active = keep_going
         return (best_acc, best_ftype) + best + (n_rounds,)
@@ -216,6 +250,21 @@ def line_search(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
                 ftype=false, it_t=it0, f_t=ev.f, c_t=ev.c, d_t=ev.d,
                 first=(it0, ev.f, ev.c, ev.d, inf, inf), used_soc=false,
                 alpha_used=alpha_max, n_soc_rounds=izero, rej_filter=false)
+    if corr is not None:
+        c_it, c_f, c_c, c_d, c_th, c_ph = _eval_trial_magic(nlp, opts,
+                                                            corr["trial"], mu)
+        c_ok, c_ftype, _ = acceptable3(alpha_max, c_th, c_ph)
+        corr_acc = c_ok & corr["active"]
+        cy = cy._replace(done=corr_acc, accepted=corr_acc, ftype=c_ftype,
+                         it_t=c_it, f_t=c_f, c_t=c_c, d_t=c_d,
+                         alpha_used=corr["alpha_pr"])
+    if opts.accept_every_trial_step:
+        # no line search: the full fraction-to-boundary step
+        it_t, f_t, c_t, d_t, theta_t, phi_t = eval_trial(alpha_max)
+        cy = cy._replace(k=izero + 1, done=~false, accepted=~false, ftype=~false,
+                         it_t=it_t, f_t=f_t, c_t=c_t, d_t=d_t,
+                         first=(it_t, f_t, c_t, d_t, theta_t, phi_t),
+                         alpha_used=alpha_max)
 
     while True:
         running = ~cy.done & (cy.k < opts.max_backtracking_steps)
@@ -224,6 +273,10 @@ def line_search(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
         alpha = cy.alpha
         it_t, f_t, c_t, d_t, theta_t, phi_t = eval_trial(alpha)
         acc, isf, rejf = acceptable3(alpha, theta_t, phi_t)
+        if opts.accept_after_max_steps >= 0:
+            # IpBacktrackingLineSearch.cpp:749: accept after this many
+            # backtracks whatever the trial
+            acc = acc | (cy.k >= opts.accept_after_max_steps)
         no_soc = (false, false, it_t, f_t, c_t, d_t, izero)
         soc = no_soc
         if opts.max_soc > 0:
@@ -264,7 +317,8 @@ def line_search(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
         theta_curr=theta, phi_curr=phi,
         first_trial=f_it, first_f=f_f, first_c=f_c, first_d=f_d,
         first_theta=f_th, first_phi=f_ph,
-        n_evals=cy.k + cy.n_soc_rounds, n_soc_rounds=cy.n_soc_rounds,
+        n_evals=cy.k + cy.n_soc_rounds + (0 if corr is None else 1),
+        n_soc_rounds=cy.n_soc_rounds,
         last_rej_filter=cy.rej_filter)
 
 

@@ -160,7 +160,7 @@ def perform_restoration(orig: CanonicalNLP, resto_nlp: CanonicalNLP,
         wd_active=torch.zeros((B,), dtype=torch.bool, device=dev),
         wd_trials=izero, wd_shortened_count=izero, wd_ref=it_r,
         wd_ref_theta=inf, wd_ref_phi=inf, soft_resto_count=izero, ev=ev_r,
-        **robust_state_init(it_r))
+        **robust_state_init(resto_opts, it_r))
 
     kappa = opts.required_infeasibility_reduction
     inf_pr_req = torch.clamp(kappa * theta_entry_max,

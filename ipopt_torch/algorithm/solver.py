@@ -1,9 +1,9 @@
 """The interior-point driver: IpoptAlgorithm::Optimize, over a batch.
 
-Port of the default path of ``ipopt_tpu/algorithm/solver.py``
-(``src/Algorithm/IpIpoptAlg.cpp:292-417``), on the dense, the chained
-(block-tridiagonal) and the banded (general sparsity, ``linear_solver=
-"banded-bcr"``) KKT backends:
+Port of ``ipopt_tpu/algorithm/solver.py`` (``src/Algorithm/IpIpoptAlg.cpp:
+292-417``) with the exact Hessian and the filter line search, on the dense,
+the chained (block-tridiagonal) and the banded (general sparsity,
+``linear_solver="banded-bcr"``) KKT backends:
 
     InitializeIterates -> CheckConvergence -> loop {
         UpdateHessian; UpdateBarrierParameter; ComputeSearchDirection;
@@ -11,14 +11,18 @@ Port of the default path of ``ipopt_tpu/algorithm/solver.py``
 
 The ``lax.while_loop`` of the reference becomes a Python loop; each step
 advances every running lane of the batch at once (``solve`` is the case
-B = 1), and a lane that has finished is not stepped again.  The state holds
-only the fields the default path reads; options that select features
-not ported yet raise ``UnsupportedOptionError`` before any iteration.
+B = 1), and a lane that has finished is not stepped again.  Both barrier
+strategies (monotone, and adaptive with its oracles, Mehrotra's mode and the
+correctors), warm starts and the time limits are ported; options that
+select features not ported yet raise ``UnsupportedOptionError`` before any
+iteration.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..types import (Iterate, SolverReturn, col, max_init, tree_put, tree_take,
@@ -30,11 +34,14 @@ from .. import kkt
 from ..kkt import Evals, evaluate, kkt_residuals, optimality_error, slacks
 from ..linalg import ldlt as _ldlt_mod
 from ..linalg.block_tridiag import bcr_factorize
-from .step import compute_search_direction, compute_hessian, _backend
+from .step import (StepResult, compute_search_direction, compute_hessian,
+                   _backend, factorize_any, solve_any, direction_from_parts)
 from .linesearch import (FilterState, filter_init, line_search, filter_reset,
                          filter_augment, _theta)
-from .mu import MuState, mu_init_state, monotone_mu_update_components
-from .init import default_initialize
+from .mu import (MuState, mu_init_state, monotone_mu_update_components,
+                 AdaptiveMuState, adaptive_mu_init, adaptive_mu_update,
+                 avg_complementarity, loqo_mu, probing_mu, quality_function_mu)
+from .init import default_initialize, warm_start_initialize, least_squares_y
 from .convergence import check_convergence
 
 _CONTINUE = int(SolverReturn.CONTINUE)
@@ -52,45 +59,15 @@ class UnsupportedOptionError(ValueError):
 
 # (option, supported values) of the features this port has.
 _SUPPORTED = (
-    ("mu_strategy", ("monotone",)),
-    ("mehrotra_algorithm", (False,)),
     ("hessian_approximation", ("exact",)),
     ("linear_solver", ("dense-ldlt", "banded-bcr")),
     ("inexact_algorithm", (False,)),
     ("line_search_method", ("filter",)),
-    ("corrector_type", ("none",)),
     ("refinement_precision", ("same",)),
     ("factorization_dtype", ("",)),
-    ("warm_start_init_point", (False,)),
-    ("check_derivatives_for_naninf", (False,)),
     ("gradient_approximation", ("exact",)),
     ("jacobian_approximation", ("exact",)),
-    ("grad_f_constant", (False,)),
-    ("hessian_constant", (False,)),
-    ("jac_c_constant", (False,)),
-    ("jac_d_constant", (False,)),
-    ("replace_bounds", (False,)),
-    ("dependency_detector", ("none",)),
     ("derivative_test", ("none",)),
-    ("callback_curr_iterate", (False,)),
-    ("nlp_scaling_method", ("gradient-based", "none")),
-    ("bound_mult_init_method", ("constant",)),
-    ("least_square_init_primal", (False,)),
-    ("least_square_init_duals", (False,)),
-    ("mu_allow_fast_monotone_decrease", (True,)),
-    ("fast_step_computation", (False,)),
-    ("soc_method", (0,)),
-    ("magic_steps", (False,)),
-    ("accept_every_trial_step", (False,)),
-    ("accept_after_max_steps", (-1,)),
-    ("expect_infeasible_problem", (False,)),
-    ("start_with_resto", (False,)),
-    ("recalc_y", (False,)),
-    ("honor_original_bounds", (False,)),
-    ("max_wall_time", (1e20,)),
-    ("max_cpu_time", (1e6,)),
-    ("timing_statistics", (False,)),
-    ("print_timing_statistics", (False,)),
 )
 
 
@@ -159,16 +136,21 @@ class IPMState(NamedTuple):
     n_filter_resets: Any
     last_rej_filter: Any
     accepted_point: Iterate
+    ams: AdaptiveMuState  # the adaptive mu strategy's per-lane carry
+    eip_active: Any       # expect_infeasible_problem heuristic still armed
 
 
-def robust_state_init(it: Iterate) -> dict:
-    """The filter-reset heuristic's carry and the previous accepted point."""
+def robust_state_init(opts: Options, it: Iterate) -> dict:
+    """The filter-reset heuristic's carry, the previous accepted point, the
+    adaptive mu carry and the infeasibility heuristic's flag."""
     B, dev = it.x.shape[0], it.x.device
     z = torch.zeros((B,), dtype=torch.int64, device=dev)
     return dict(
         filter_rej_count=z, n_filter_resets=z,
         last_rej_filter=torch.zeros((B,), dtype=torch.bool, device=dev),
-        accepted_point=it)
+        accepted_point=it, ams=adaptive_mu_init(B, it.x.dtype, dev),
+        eip_active=torch.full((B,), bool(opts.expect_infeasible_problem),
+                              dtype=torch.bool, device=dev))
 
 
 class SolveResult(NamedTuple):
@@ -302,11 +284,61 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
     compl_fn = _compl_max_fn(nlp, it, s_c)
     # --- UpdateHessian (exact) --------------------------------------------
     W = compute_hessian(nlp, it)
-    # Monotone Fiacco-McCormick (IpMonotoneMuUpdate.cpp)
-    ms = monotone_mu_update_components(opts, MuState(st.mu, st.tau),
-                                       dual_inf / s_d, primal_inf, compl_fn)
-    mu, tau = ms.mu, ms.tau
-    sr = compute_search_direction(nlp, opts, it, ev, W, mu, st.delta_w_last)
+    adaptive = opts.mu_strategy == "adaptive" or opts.mehrotra_algorithm
+    extra_solves = 2 if adaptive else 0
+    ams = st.ams
+    step_aff = None
+    if adaptive:
+        # AdaptiveMuUpdate: one factorization serves the affine solve, the
+        # centering solve and the final step, since rhs(mu) = rhs(0) +
+        # mu * (rhs(1) - rhs(0)) and the bound-multiplier recovery is
+        # affine in mu too (solver.py:427-491).
+        fr = factorize_any(nlp, opts, it, ev, W, st.mu, st.delta_w_last)
+        parts0 = kkt.condensed_rhs_parts(nlp, it, ev, 0.0, opts.kappa_d)
+        parts1 = kkt.condensed_rhs_parts(nlp, it, ev, 1.0, opts.kappa_d)
+        dparts = tuple(b - a for a, b in zip(parts0, parts1))
+        split_aff, rr_a = solve_any(nlp, opts, fr.fac, fr.K, parts0)
+        split_cent, _ = solve_any(nlp, opts, fr.fac, fr.K, dparts)
+        step_aff = direction_from_parts(nlp, it, split_aff, 0.0, fr.failed)
+        step_at1 = direction_from_parts(
+            nlp, it, tuple(a + b for a, b in zip(split_aff, split_cent)), 1.0,
+            fr.failed)
+        step_cent = Iterate(*(b - a for a, b in zip(step_aff, step_at1)))
+        # mehrotra_probing (IpAlgBuilder.cpp:355-363) forces the probing
+        # oracle in Mehrotra's mode
+        oracle = ("probing" if opts.mehrotra_algorithm and opts.mehrotra_probing
+                  else opts.mu_oracle)
+        oracle_args = (step_aff, step_cent, dual_inf / s_d, primal_inf, st.tau)
+        mu_orc = _oracle_mu(nlp, opts, it, oracle, *oracle_args)
+        fix_mu_val = _oracle_mu(nlp, opts, it, opts.fixed_mu_oracle, *oracle_args)
+        theta_curr = ev.c.abs().sum(-1) + (ev.d - it.s).abs().sum(-1)
+        avg_compl_val, _ = avg_complementarity(nlp, it)
+        dual1_avg = ((res0.grad_lag_x.abs().sum(-1) + res0.grad_lag_s.abs().sum(-1))
+                     / max(nlp.n + nlp.mi, 1))
+        primal1_avg = ((res0.c.abs().sum(-1) + res0.d_minus_s.abs().sum(-1))
+                       / max(nlp.me + nlp.mi, 1))
+        ams, ms = adaptive_mu_update(
+            opts, st.ams, MuState(st.mu, st.tau), mu_orc, dual_inf / s_d,
+            primal_inf, compl_fn, theta_curr, ev.f, avg_compl_val, dual1_avg,
+            primal1_avg, fix_mu_val)
+        mu, tau = ms.mu, ms.tau
+        step = Iterate(*(a + col(mu) * c for a, c in zip(step_aff, step_cent)))
+        sr = StepResult(step=step, delta_x=fr.delta_x, delta_c=fr.delta_c,
+                        delta_w_last=fr.delta_w_last, failed=fr.failed,
+                        num_trials=fr.num_trials, residual_ratio=rr_a,
+                        fac=fr.fac, K=fr.K)
+    else:
+        # Monotone Fiacco-McCormick (IpMonotoneMuUpdate.cpp); without
+        # mu_allow_fast_monotone_decrease one level per update except the
+        # first (IpMonotoneMuUpdate.cpp:170-182)
+        rounds = 30
+        if not opts.mu_allow_fast_monotone_decrease:
+            rounds = torch.where(st.iter_count == 0, 30, 1)
+        ms = monotone_mu_update_components(opts, MuState(st.mu, st.tau),
+                                           dual_inf / s_d, primal_inf, compl_fn,
+                                           max_rounds=rounds)
+        mu, tau = ms.mu, ms.tau
+        sr = compute_search_direction(nlp, opts, it, ev, W, mu, st.delta_w_last)
 
     # --- Tiny-step detection (BacktrackingLineSearch tiny_step_tol) -------
     eps = torch.finfo(dtype).eps
@@ -322,6 +354,15 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
     tiny_count = torch.where(is_tiny & (dy_norm < opts.tiny_step_y_tol),
                              st.tiny_step_count + 1,
                              torch.zeros_like(st.tiny_step_count))
+
+    # --- Higher-order corrector (FilterLSAcceptor::TryCorrector,
+    #     IpFilterLSAcceptor.cpp:655-880): the corrected full step, which the
+    #     line search tries first
+    corr = None
+    if opts.corrector_type != "none":
+        corr = _corrector(nlp, opts, it, ev, sr, mu, tau, step_aff,
+                          ams.free_mode if adaptive else false)
+        extra_solves += 1
 
     # --- Filter-reset heuristic (IpFilterLSAcceptor.cpp:402-420) ----------
     fs_in = st.fs
@@ -339,7 +380,7 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
 
     # --- Line search ------------------------------------------------------
     ls = line_search(nlp, opts, it, ev, sr, mu, tau, fs_in, st.theta_min,
-                     st.theta_max)
+                     st.theta_max, corr=corr)
     lrf_next = ls.last_rej_filter
 
     # --- PerformDualStep: y step size per alpha_for_y ---------------------
@@ -386,8 +427,24 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
                              torch.zeros_like(st.soft_resto_count))
     accepted = accepted | soft_ok
 
+    # --- Forced restoration entries (IpBacktrackingLineSearch.cpp:332-345,
+    #     788-793): start_with_resto skips the first line search;
+    #     expect_infeasible_problem jumps to restoration when the multipliers
+    #     pass ytol, or after 5 shortened steps unless the first trial was
+    #     just accepted in full.
+    force_resto = false
+    if enable_resto and opts.start_with_resto:
+        force_resto = force_resto | (st.iter_count == 0)
+    if enable_resto and opts.expect_infeasible_problem:
+        y_amax = torch.maximum(kkt.norm_inf(it.y_c), kkt.norm_inf(it.y_d))
+        full_first = ls.accepted & (ls.n_backtracks <= 1)
+        force_resto = (force_resto
+                       | (st.eip_active & (y_amax > opts.expect_infeasible_problem_ytol))
+                       | (st.eip_active & (st.wd_shortened_count >= 5) & ~full_first))
+    accepted = accepted & ~force_resto
+
     new_it = tree_where(accepted, ls.trial, it)
-    new_it = tree_where(in_wd | soft_ok, wd_trial, new_it)
+    new_it = tree_where((in_wd | soft_ok) & ~force_resto, wd_trial, new_it)
     new_it = tree_where(wd_restore, st.wd_ref, new_it)
     # slack_move (IpIpoptCalculatedQuantities.cpp:164-171,520-528)
     if opts.slack_move > 0.0:
@@ -492,16 +549,36 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
         vals = [v.tolist() for v in (st.iter_count, ev.f, primal_inf, dual_inf,
                                      mu, ls.alpha_primal, ls.alpha_dual,
                                      ls.n_backtracks)]
+        extra = [{}] * B
+        if opts.callback_curr_iterate:
+            # get_curr_iterate / get_curr_violations (IpTNLP.hpp:665-793)
+            blocks = dict(x=_x_user(nlp, it.x), s=it.s, y_c=it.y_c, y_d=it.y_d,
+                          z_L=it.z_L, z_U=it.z_U)
+            viol = dict(grad_lag_x=res0.grad_lag_x, compl_x_L=res0.compl_x_L,
+                        compl_x_U=res0.compl_x_U, compl_s_L=res0.compl_s_L,
+                        compl_s_U=res0.compl_s_U, c_violation=ev.c,
+                        d_minus_s=ev.d - it.s)
+            blocks, viol = ({k: v.detach().cpu().numpy() for k, v in d.items()}
+                            for d in (blocks, viol))
+            extra = [dict(curr_iterate={k: v[b] for k, v in blocks.items()},
+                          curr_violations={k: v[b] for k, v in viol.items()})
+                     for b in range(B)]
         keep = []
         for b in range(B):
             i, f_, pr, du, m_, apr, adu, lsn = (v[b] for v in vals)
             r = user_cb(iter_count=int(i), obj_value=float(f_), inf_pr=float(pr),
                         inf_du=float(du), mu=float(m_), alpha_pr=float(apr),
-                        alpha_du=float(adu), ls_trials=int(lsn))
+                        alpha_du=float(adu), ls_trials=int(lsn), **extra[b])
             keep.append(r is not False)
         stop = ~torch.tensor(keep, dtype=torch.bool, device=dev)
         status = torch.where((status == _CONTINUE) & stop,
                              int(SolverReturn.USER_REQUESTED_STOP), status)
+
+    # --- adaptive_mu_restore_previous_iterate (IpAdaptiveMuUpdate.cpp:
+    #     362-370): a lane that just fell back to monotone mode restarts from
+    #     its previous accepted point
+    if opts.adaptive_mu_restore_previous_iterate and adaptive:
+        new_it = tree_where(ams.just_switched, st.accepted_point, new_it)
 
     # --- CheckConvergence at the NEW point --------------------------------
     ev_new = evaluate(nlp, new_it.x)
@@ -513,6 +590,10 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
                                   st.wd_shortened_count + 1)
     activate = (~in_wd & (new_short_count >= opts.watchdog_shortened_iter_trigger)
                 if opts.watchdog_shortened_iter_trigger > 0 else false)
+    if opts.expect_infeasible_problem:
+        # no watchdog while the infeasibility heuristic is armed
+        # (IpBacktrackingLineSearch.cpp:367)
+        activate = activate & ~st.eip_active
     wd_done = wd_ok | wd_restore
     wd_active_next = torch.where(in_wd, ~wd_done, activate)
     wd_trials_next = torch.where(in_wd & ~wd_done, st.wd_trials + 1,
@@ -525,6 +606,28 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
     wd_ref_phi_next = torch.where(activate, phi_new, st.wd_ref_phi)
     new_short_count = torch.where(activate, torch.zeros_like(new_short_count),
                                   new_short_count)
+
+    # --- recalc_y (IpIpoptAlg.cpp:774-811): once nearly feasible, least-
+    #     squares equality multipliers at the accepted point (dense backend)
+    if opts.recalc_y and nlp.chain is None and nlp.struct.me + nlp.struct.mi > 0:
+        theta_acc = _theta(ev_new.c, ev_new.d, new_it.s, norm_type)
+        redo = theta_acc < opts.recalc_y_feas_tol
+        if bool(redo.any()):
+            y_c2, y_d2 = least_squares_y(nlp, new_it.x, new_it.s, ev_new.grad_f,
+                                         ev_new.J_c, ev_new.J_d, new_it.z_L,
+                                         new_it.z_U, new_it.v_L, new_it.v_U,
+                                         float("inf"))
+            new_it = new_it._replace(
+                y_c=tree_where(redo, y_c2, new_it.y_c),
+                y_d=tree_where(redo, y_d2, new_it.y_d))
+
+    # --- expect_infeasible_problem: disarm once the violation is below ctol
+    #     or after a restoration (IpBacktrackingLineSearch.cpp:615-652)
+    eip_next = st.eip_active
+    if opts.expect_infeasible_problem:
+        theta_eip = _theta(ev_new.c, ev_new.d, new_it.s, norm_type)
+        eip_next = (eip_next & (theta_eip > opts.expect_infeasible_problem_ctol)
+                    & ~need_resto)
 
     res_new = kkt_residuals(nlp, new_it, ev_new, 0.0)
     E, d_inf, p_inf, c_inf = optimality_error(nlp, new_it, res_new, opts.s_max)
@@ -540,6 +643,8 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
     finite_ok = (torch.isfinite(ev_new.f) & torch.isfinite(new_it.x).all(-1)
                  & torch.isfinite(ev_new.c).all(-1) & torch.isfinite(ev_new.d).all(-1)
                  & torch.isfinite(ev_new.grad_f).all(-1))
+    if opts.check_derivatives_for_naninf:
+        finite_ok = finite_ok & _derivatives_finite(nlp, new_it)
     status = torch.where((status == _CONTINUE) & ~finite_ok,
                          int(SolverReturn.INVALID_NUMBER_DETECTED), status)
 
@@ -552,7 +657,7 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
         n_grad_evals=c.n_grad_evals + 1 + ls_failed.long(),
         n_hess_evals=c.n_hess_evals + 1,
         n_factorizations=c.n_factorizations + sr.num_trials,
-        n_kkt_solves=c.n_kkt_solves + 1 + ls.n_soc_rounds)
+        n_kkt_solves=c.n_kkt_solves + 1 + ls.n_soc_rounds + extra_solves)
     return IPMState(
         it=new_it, mu=mu, tau=tau,
         iter_count=st.iter_count + 1 + extra_iters,
@@ -566,13 +671,130 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
         wd_active=wd_active_next, wd_trials=wd_trials_next,
         wd_shortened_count=new_short_count, wd_ref=wd_ref_next,
         wd_ref_theta=wd_ref_theta_next, wd_ref_phi=wd_ref_phi_next,
-        soft_resto_count=soft_count, ev=ev_new, filter_rej_count=frc_next, n_filter_resets=nfr_next,
-        last_rej_filter=lrf_next, accepted_point=st.it)
+        soft_resto_count=soft_count, ev=ev_new, filter_rej_count=frc_next,
+        n_filter_resets=nfr_next, last_rej_filter=lrf_next, accepted_point=st.it,
+        ams=ams, eip_active=eip_next)
 
 
-def initial_state(nlp: CanonicalNLP, opts: Options) -> IPMState:
+def _oracle_mu(nlp: CanonicalNLP, opts: Options, it: Iterate, name: str,
+               step_aff, step_cent, dual_s, primal_inf, tau):
+    """The mu of the oracle ``name`` per lane; None for "average_compl"
+    (the fixed-mode fallback of NewFixedMu)."""
+    if name == "loqo":
+        return loqo_mu(nlp, it, opts)
+    if name == "probing":
+        return probing_mu(nlp, it, opts, step_aff)
+    if name == "quality-function":
+        return quality_function_mu(nlp, it, opts, step_aff, step_cent, dual_s,
+                                   primal_inf, tau)
+    return None
+
+
+def _corrector(nlp: CanonicalNLP, opts: Options, it: Iterate, ev, sr, mu, tau,
+               step_aff, free_mode) -> dict:
+    """The corrected first trial of FilterLSAcceptor::TryCorrector
+    (IpFilterLSAcceptor.cpp:655-880, ``solver.py:548-641``): one more solve
+    with the saved factorization, on a pure complementarity right-hand side
+    reduced onto the condensed system.  ``step_aff`` is the affine step of
+    the adaptive strategy, or None."""
+    active = ~sr.failed
+    if opts.skip_corr_in_monotone_mode:
+        active = active & free_mode  # only in free mu mode (:663)
+    if opts.skip_corr_if_neg_curv:
+        active = active & (sr.delta_x == 0.0)  # not after a perturbation (:662)
+    active = active & (avg_complementarity(nlp, it)[1] > 0)
+    d_aff = step_aff
+    if d_aff is None and opts.corrector_type == "affine":
+        parts_a = kkt.condensed_rhs_parts(nlp, it, ev, 0.0, opts.kappa_d)
+        split_a, _ = solve_any(nlp, opts, sr.fac, sr.K, parts_a)
+        d_aff = direction_from_parts(nlp, it, split_a, 0.0, sr.failed)
+    sl_xL, sl_xU, sl_sL, sl_sU = slacks(nlp, it)
+    stp = sr.step
+    m = col(mu)
+
+    def w(has, v):
+        return torch.where(has, v, torch.zeros_like(v))
+
+    if opts.corrector_type == "affine":
+        # the classic MPC second-order term (:689-748)
+        r_zL = w(nlp.has_xL, -d_aff.x * d_aff.z_L)
+        r_zU = w(nlp.has_xU, d_aff.x * d_aff.z_U)
+        r_vL = w(nlp.has_dL, -d_aff.s * d_aff.v_L)
+        r_vU = w(nlp.has_dU, d_aff.s * d_aff.v_U)
+    else:
+        # "primal-dual": the complementarity residual at the predicted point,
+        # targeting mu (:751-798)
+        r_zL = w(nlp.has_xL, m - (sl_xL + stp.x) * (it.z_L + stp.z_L))
+        r_zU = w(nlp.has_xU, m - (sl_xU - stp.x) * (it.z_U + stp.z_U))
+        r_vL = w(nlp.has_dL, m - (sl_sL + stp.s) * (it.v_L + stp.v_L))
+        r_vU = w(nlp.has_dU, m - (sl_sU - stp.s) * (it.v_U + stp.v_U))
+    B = it.x.shape[0]
+    parts_c = (w(nlp.has_xL, r_zL / sl_xL) - w(nlp.has_xU, r_zU / sl_xU),
+               w(nlp.has_dL, r_vL / sl_sL) - w(nlp.has_dU, r_vU / sl_sU),
+               it.x.new_zeros((B, nlp.me)), it.x.new_zeros((B, nlp.mi)))
+    (dx2, ds2, dyc2, dyd2), _ = solve_any(nlp, opts, sr.fac, sr.K, parts_c)
+    d_corr = Iterate(
+        x=stp.x + dx2, s=stp.s + ds2, y_c=stp.y_c + dyc2, y_d=stp.y_d + dyd2,
+        z_L=stp.z_L + w(nlp.has_xL, (r_zL - it.z_L * dx2) / sl_xL),
+        z_U=stp.z_U + w(nlp.has_xU, (r_zU + it.z_U * dx2) / sl_xU),
+        v_L=stp.v_L + w(nlp.has_dL, (r_vL - it.v_L * ds2) / sl_sL),
+        v_U=stp.v_U + w(nlp.has_dU, (r_vU + it.v_U * ds2) / sl_sU))
+    a_pr, a_du = kkt.fraction_to_boundary(nlp, it, d_corr, tau)
+    p, d = col(a_pr), col(a_du)
+    trial = Iterate(
+        x=it.x + p * d_corr.x, s=it.s + p * d_corr.s,
+        y_c=it.y_c + p * d_corr.y_c, y_d=it.y_d + p * d_corr.y_d,
+        z_L=it.z_L + d * d_corr.z_L, z_U=it.z_U + d * d_corr.z_U,
+        v_L=it.v_L + d * d_corr.v_L, v_U=it.v_U + d * d_corr.v_U)
+    if opts.corrector_type == "affine":
+        # reject when the complementarity did not shrink enough
+        # (corrector_compl_avrg_red_fact, :826-840)
+        active = active & (avg_complementarity(nlp, trial)[0]
+                           < opts.corrector_compl_avrg_red_fact
+                           * avg_complementarity(nlp, it)[0])
+    return dict(trial=trial, alpha_pr=a_pr, alpha_du=a_du, active=active)
+
+
+def _derivatives_finite(nlp: CanonicalNLP, it: Iterate):
+    """check_derivatives_for_naninf (IpTNLPAdapter.cpp:1180): the Jacobian
+    and Lagrangian-Hessian actions on the ones vector are finite, per lane
+    (J 1 and W 1 touch every stored entry)."""
+    from torch.func import grad, jvp, vmap
+    ones = torch.ones_like(it.x)
+    jc1, jd1 = jvp(nlp.eval_cd, (it.x,), (ones,))[1]
+
+    def w1(x, yc, yd, ln):
+        g = grad(lambda z: nlp.lag1(z, yc, yd, ln))
+        return jvp(g, (x,), (torch.ones_like(x),))[1]
+
+    wv = vmap(w1)(it.x, it.y_c, it.y_d, nlp.lane())
+    return (torch.isfinite(jc1).all(-1) & torch.isfinite(jd1).all(-1)
+            & torch.isfinite(wv).all(-1))
+
+
+def _x_user(nlp: CanonicalNLP, x):
+    """The user-space x of every lane (fixed variables put back)."""
+    s = nlp.struct
+    if s.n == s.n_full:
+        return x
+    return torch.cat([x, nlp.x_fixed], -1)[:, s.index("perm", x.device)]
+
+
+def initial_state(nlp: CanonicalNLP, opts: Options,
+                  it0: Optional[Iterate] = None) -> IPMState:
+    """The state before the first iteration: the default initialization, or
+    the warm start from ``it0`` (``warm_start_init_point``; without it
+    ``it0`` is taken as it is), with mu re-targeted by
+    ``warm_start_target_mu`` on a warm start (``solver.py:1271-1328``)."""
     B, dtype, dev = nlp.batch, nlp.dtype, nlp.device
-    it = default_initialize(nlp, opts)
+    if it0 is None:
+        it = default_initialize(nlp, opts)
+    elif opts.warm_start_init_point:
+        it = warm_start_initialize(nlp, opts, it0)
+    else:
+        it = it0
+    if it0 is not None and opts.warm_start_target_mu > 0.0:
+        opts = opts.replace(mu_init=opts.warm_start_target_mu)
     ev = evaluate(nlp, it.x)
     theta0 = _theta(ev.c, ev.d, it.s, opts.constraint_violation_norm_type)
     ms = mu_init_state(opts, B, dtype, dev)
@@ -592,7 +814,7 @@ def initial_state(nlp: CanonicalNLP, opts: Options) -> IPMState:
         wd_active=torch.zeros((B,), dtype=torch.bool, device=dev),
         wd_trials=zi, wd_shortened_count=zi, wd_ref=it,
         wd_ref_theta=inf, wd_ref_phi=inf, soft_resto_count=zi, ev=ev,
-        **robust_state_init(it))
+        **robust_state_init(opts, it))
 
 
 def initial_check(nlp: CanonicalNLP, opts: Options, st: IPMState) -> IPMState:
@@ -616,9 +838,22 @@ def guarded_step(nlp: CanonicalNLP, opts: Options, st: IPMState) -> IPMState:
     return tree_put(st, idx, sub)
 
 
-def run_ipm(nlp: CanonicalNLP, opts: Options, st: IPMState) -> IPMState:
-    """The outer loop, while any lane is running."""
+def run_ipm(nlp: CanonicalNLP, opts: Options, st: IPMState,
+            clocks: Optional[tuple] = None) -> IPMState:
+    """The outer loop, while any lane is running.  With ``clocks`` (the wall
+    and CPU times the solve started at), max_wall_time and max_cpu_time are
+    checked before every iteration (IpOptErrorConvCheck.cpp:167-213): the
+    running lanes end with WALLTIME_EXCEEDED or CPUTIME_EXCEEDED."""
     while bool((st.status == _CONTINUE).any()):
+        if clocks is not None:
+            over = None
+            if time.perf_counter() - clocks[0] > opts.max_wall_time:
+                over = SolverReturn.WALLTIME_EXCEEDED
+            elif time.process_time() - clocks[1] > opts.max_cpu_time:
+                over = SolverReturn.CPUTIME_EXCEEDED
+            if over is not None:
+                return st._replace(status=torch.where(
+                    st.status == _CONTINUE, int(over), st.status))
         st = guarded_step(nlp, opts, st)
     return st
 
@@ -628,9 +863,11 @@ def finalize(nlp: CanonicalNLP, opts: Options, st: IPMState) -> SolveResult:
     it = st.it
     s = nlp.struct
     B, dev = it.x.shape[0], it.x.device
-    x_user = it.x
-    if s.n != s.n_full:
-        x_user = torch.cat([it.x, nlp.x_fixed], -1)[:, s.index("perm", dev)]
+    x = it.x
+    if opts.honor_original_bounds:
+        x = torch.where(nlp.has_xL, torch.maximum(x, nlp.x_L_orig), x)
+        x = torch.where(nlp.has_xU, torch.minimum(x, nlp.x_U_orig), x)
+    x_user = _x_user(nlp, x)
     ev = st.ev
     res = kkt_residuals(nlp, it, ev, 0.0)
     E, d_inf, p_inf, c_inf = optimality_error(nlp, it, res, opts.s_max)
@@ -659,19 +896,23 @@ def finalize(nlp: CanonicalNLP, opts: Options, st: IPMState) -> SolveResult:
 
 
 def solve_canonical(nlp: CanonicalNLP, opts: Options,
-                    initial_convergence_check: bool = True) -> SolveResult:
-    """Solve every lane of a canonical batch; counts the batched
-    factorizations."""
+                    initial_convergence_check: bool = True,
+                    it0: Optional[Iterate] = None) -> SolveResult:
+    """Solve every lane of a canonical batch, from ``it0`` if given; counts
+    the batched factorizations."""
     check_supported(opts)
+    clocks = None
+    if opts.max_wall_time < 1e19 or opts.max_cpu_time < 1e6:
+        clocks = (time.perf_counter(), time.process_time())
 
     def calls():
         return _ldlt_mod.ldlt.calls + bcr_factorize.calls
 
     calls0 = calls()
-    st = initial_state(nlp, opts)
+    st = initial_state(nlp, opts, it0)
     if initial_convergence_check:
         st = initial_check(nlp, opts, st)
-    st = run_ipm(nlp, opts, st)
+    st = run_ipm(nlp, opts, st, clocks)
     res = finalize(nlp, opts, st)
     return res._replace(batched_factorizations=calls() - calls0)
 
@@ -710,7 +951,42 @@ def prepare_options(options: Optional[Options], option_kwargs: dict) -> Options:
     return opts
 
 
-def solve(problem, options: Optional[Options] = None, device=None,
+def _warm_iterate_from_nlp(problem: NLP, cnlp: CanonicalNLP) -> Iterate:
+    """The warm iterate of the user's starting multipliers ``y0``, ``z_L0``,
+    ``z_U0`` (TNLP::get_starting_point with init_z / init_lambda,
+    ``solver.py:1588-1620``), in the scaled internal space."""
+    s = cnlp.struct
+    x = cnlp.x0
+    dev, dtype = x.device, x.dtype
+    osc = col(cnlp.obj_scale)
+    y_c = x.new_zeros((1, s.me))
+    y_d = x.new_zeros((1, s.mi))
+    if problem.y0 is not None and s.m:
+        y_all = torch.as_tensor(np.asarray(problem.y0, dtype=np.float64),
+                                dtype=dtype, device=dev)[None]
+        if s.me:
+            y_c = y_all[:, s.index("eq_idx", dev)] * osc / cnlp.c_scale
+        if s.mi:
+            y_d = y_all[:, s.index("ineq_idx", dev)] * osc / cnlp.d_scale
+
+    def zfree(z0):
+        if z0 is None:
+            return torch.ones_like(x)
+        z = torch.as_tensor(np.asarray(z0, dtype=np.float64), dtype=dtype,
+                            device=dev)[None]
+        return z[:, s.index("free_idx", dev)] * osc
+
+    def w(has, v):
+        return torch.where(has, v, torch.zeros_like(v))
+
+    one_s = x.new_ones((1, s.mi))
+    return Iterate(x=x, s=cnlp.eval_d(x), y_c=y_c, y_d=y_d,
+                   z_L=w(cnlp.has_xL, zfree(problem.z_L0)),
+                   z_U=w(cnlp.has_xU, zfree(problem.z_U0)),
+                   v_L=w(cnlp.has_dL, one_s), v_U=w(cnlp.has_dU, one_s))
+
+
+def solve(problem, options: Optional[Options] = None, device=None, it0=None,
           intermediate_callback=None, **option_kwargs) -> SolveResult:
     """Solve one NLP (IpoptApplication::OptimizeTNLP equivalent).
 
@@ -720,9 +996,14 @@ def solve(problem, options: Optional[Options] = None, device=None,
     block-tridiagonal backend) or a canonical problem with one lane.  The
     solve runs on ``device``, by default the CUDA device; pass
     ``device="cpu"`` for the CPU.  Keyword arguments override options by
-    their Ipopt names.  ``intermediate_callback(iter_count=, obj_value=,
+    their Ipopt names.  ``it0`` is a starting iterate, such as the
+    ``iterate`` of an earlier result: with ``warm_start_init_point=True`` it
+    is pushed inside the bounds as a warm start (ReOptimizeTNLP), otherwise
+    taken as it is.  ``intermediate_callback(iter_count=, obj_value=,
     inf_pr=, inf_du=, mu=, alpha_pr=, alpha_du=, ls_trials=)`` runs once per
-    iteration; returning False stops with USER_REQUESTED_STOP.
+    iteration (with ``callback_curr_iterate`` also ``curr_iterate=`` and
+    ``curr_violations=``, dicts of numpy arrays); returning False stops with
+    USER_REQUESTED_STOP.
     """
     opts = prepare_options(options, option_kwargs)
     dev = resolve_device(device)
@@ -731,6 +1012,25 @@ def solve(problem, options: Optional[Options] = None, device=None,
     if intermediate_callback is not None:
         from ..options import register_callback
         opts = opts.replace(callback_token=register_callback(intermediate_callback))
+    if isinstance(problem, NLP) and opts.replace_bounds:
+        # NLPBoundsRemover (IpNLPBoundsRemover.hpp:23)
+        from ..interfaces.transforms import remove_bounds
+        problem = remove_bounds(problem)
+    if isinstance(problem, NLP) and opts.dependency_detector != "none":
+        # TNLPAdapter's dependent-equality detection (IpTNLPAdapter.cpp:628)
+        from ..interfaces.dependency import detect_dependent_constraints
+        from ..interfaces.transforms import reduce_constraints
+        from ..journalist import default_journalist, EJournalLevel, EJournalCategory
+        deps = detect_dependent_constraints(problem, opts)
+        if deps:
+            jn = default_journalist()
+            jn.printf(EJournalLevel.J_WARNING, EJournalCategory.J_INITIALIZATION,
+                      f"Detected {len(deps)} linearly dependent equality "
+                      f"constraints; taking those out.\n")
+            for k, i in enumerate(deps):
+                jn.printf(EJournalLevel.J_DETAILED,
+                          EJournalCategory.J_INITIALIZATION, f"c_dep[{k}] = {i}\n")
+            problem = reduce_constraints(problem, deps)
     if isinstance(problem, NLP) and opts.linear_solver == "banded-bcr":
         from ..sparse import canonicalize_sparse
         cnlp = canonicalize_sparse(problem, opts, device=dev)
@@ -742,6 +1042,27 @@ def solve(problem, options: Optional[Options] = None, device=None,
         cnlp = problem.to(dev)
     if cnlp.batch != 1:
         raise ValueError("solve() takes one problem; use solve_batched")
+    if it0 is not None:
+        it0 = Iterate(*(torch.as_tensor(v).to(device=dev, dtype=cnlp.dtype)
+                        .reshape(1, v.shape[-1]) for v in it0))
+    elif (isinstance(problem, NLP) and opts.warm_start_init_point
+          and (problem.y0 is not None or problem.z_L0 is not None
+               or problem.z_U0 is not None)):
+        it0 = _warm_iterate_from_nlp(problem, cnlp)
     if opts.print_level >= 4 or (opts.output_file and opts.file_print_level >= 4):
         _print_header()
-    return _unbatch(solve_canonical(cnlp, opts))
+    t0 = time.perf_counter()
+    res = _unbatch(solve_canonical(cnlp, opts, it0=it0))
+    if opts.timing_statistics or opts.print_timing_statistics:
+        wall = time.perf_counter() - t0
+        if opts.print_level > 0 or opts.print_timing_statistics:
+            c = res.counters
+            print(f"OverallAlgorithm....................: {wall:10.3f} (wall)")
+            print(f"  per iteration.....................: "
+                  f"{wall / max(int(res.iter_count), 1):10.4f}")
+            print(f"Function evaluations (f,g)..........: {int(c.n_obj_evals)}")
+            print(f"Gradient evaluations................: {int(c.n_grad_evals)}")
+            print(f"Hessian evaluations.................: {int(c.n_hess_evals)}")
+            print(f"KKT factorizations..................: {int(c.n_factorizations)}")
+            print(f"KKT backsolve batches...............: {int(c.n_kkt_solves)}")
+    return res

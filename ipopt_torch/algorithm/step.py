@@ -19,7 +19,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ..types import Iterate, tree_where, max_init
+from ..types import Iterate, col, tree_where, max_init
 from ..problem import CanonicalNLP
 from ..options import Options
 from ..kkt import (Evals, sigmas, assemble_aug_system, condensed_rhs_parts,
@@ -74,12 +74,15 @@ def refine(matvec, solve, rhs, opts: Options):
     (IpPDFullSpaceSolver.cpp:235-345), given the products ``matvec(x)`` = K x
     and the factorized solve ``solve(r)``; returns (sol, residual ratio)."""
     sol = solve(rhs)
+    B = rhs.shape[0]
+    if opts.fast_step_computation:
+        # no refinement and no residual check (IpPDFullSpaceSolver.cpp)
+        return sol, rhs.new_zeros((B,))
     rhs_norm = torch.clamp(max_init(rhs.abs(), 0.0), min=1e-30)
 
     def ratio(s):
         return max_init((rhs - matvec(s)).abs(), 0.0) / rhs_norm
 
-    B = rhs.shape[0]
     i = torch.zeros((B,), dtype=torch.int64, device=rhs.device)
     rr = ratio(sol)
     imp = opts.residual_improvement_factor < 1e19
@@ -270,12 +273,16 @@ def compute_search_direction(nlp: CanonicalNLP, opts: Options, it: Iterate,
 
 
 def soc_direction(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
-                  fac, K, mu, c_soc, dms_soc):
+                  fac, K, mu, c_soc, dms_soc, alpha_soc=None):
     """Second-order correction direction with the saved factorization
-    (IpFilterLSAcceptor.cpp:531, soc_method 0)."""
+    (IpFilterLSAcceptor.cpp:531).  soc_method 1 also scales the x and s rows
+    of the rhs by the running SOC step size (IpFilterLSAcceptor.cpp:572-603)."""
     r_x = (grad_barrier_x(nlp, it, ev.grad_f, mu, opts.kappa_d)
            + jac_t(nlp, ev, it.y_c, it.y_d))
     r_s = grad_barrier_s(nlp, it, mu, opts.kappa_d) - it.y_d
+    if opts.soc_method == 1 and alpha_soc is not None:
+        r_x = col(alpha_soc) * r_x
+        r_s = col(alpha_soc) * r_s
     xsplit, _ = solve_any(nlp, opts, fac, K, (-r_x, -r_s, -c_soc, -dms_soc))
     dx, ds, dy_c, dy_d = xsplit
     dz_L, dz_U, dv_L, dv_U = recover_bound_mult_steps(nlp, it, dx, ds, mu)

@@ -5,7 +5,11 @@ the port's algorithm is written over an explicit leading batch axis, so one
 call factorizes the KKT matrix of every instance (one K1 launch per
 inertia-correction round).  A finished lane is frozen: it is not stepped
 again, so the batch result equals solving each instance alone
-(``tests/test_batch.py``'s contract).
+(``tests/test_batch.py``'s contract).  Every per-lane carry moves in
+lockstep, the adaptive barrier strategy's (``AdaptiveMuState``) included;
+the quality-function oracle's golden-section search runs its bound of
+steps with each lane's finished carry frozen, as the reference's vmapped
+loop does.
 """
 from __future__ import annotations
 

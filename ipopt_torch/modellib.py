@@ -1,12 +1,13 @@
-"""Model library of the port: the HS071 problem and the family the batched
-benchmark solves (``bench.py:121-133``), LuksanVlcek1 as a plain NLP for the
-dense backend (``tests/problems.py:146``), the chained LuksanVlcek1 and 1-D
-boundary-control problems (``bench.py:302-314``, ``tests/test_chained.py``),
-and the flat problems with declared sparsity of the banded backend,
-LuksanVlcek1 and the 2-D Mittelmann distributed control
-(``bench.py:247-299``).
-Port of the part of ``ipopt_tpu/modellib.py`` on the ported paths; the other
-models come with the slices that use them.
+"""Model library of the port (``ipopt_tpu/modellib.py``): the HS071 problem
+and the family the batched benchmark solves (``bench.py:121-133``),
+LuksanVlcek1 as a plain NLP for the dense backend (``tests/problems.py:146``),
+the chained LuksanVlcek1 and 1-D boundary-control problems
+(``bench.py:302-314``, ``tests/test_chained.py``), the flat problems with
+declared sparsity of the banded backend (LuksanVlcek1 and the 2-D Mittelmann
+distributed control, ``bench.py:247-299``), LuksanVlcek 2-7 in equality (E)
+and inequality (I) form, and the 2-D Mittelmann boundary control chained
+over pairs of grid rows.  ``mittelmann_dist_control_3d`` comes with the
+multifrontal backend that solves it.
 
 The stage functions of a chained model are module-level functions or
 value-compared callables, so that two instances of one model share one
@@ -21,6 +22,7 @@ import torch
 
 from .chained import ChainedNLP
 from .problem import NLP
+from .types import DeviceConstant
 
 HS071_F_STAR = 17.0140171451792
 
@@ -215,23 +217,6 @@ def luksan_vlcek1_flat(n: int) -> NLP:
                name=f"luksan_vlcek1_flat{n}")
 
 
-class _DeviceConstant:
-    """A numpy constant as a tensor on the device and dtype of each call's
-    argument, made once per (device, dtype)."""
-
-    def __init__(self, value: np.ndarray):
-        self.value = value
-        self._cache = {}
-
-    def like(self, x: torch.Tensor) -> torch.Tensor:
-        key = (str(x.device), x.dtype)
-        t = self._cache.get(key)
-        if t is None:
-            t = torch.as_tensor(self.value, dtype=x.dtype, device=x.device)
-            self._cache[key] = t
-        return t
-
-
 def mittelmann_dist_control(N: int) -> NLP:
     """MittelmannDistCntrlNeumA1 (``ipopt_tpu/modellib.py:489-590``;
     examples/ScalableProblems/MittelmannDistCntrlNeumA.hpp:413-439): 2-D
@@ -261,7 +246,7 @@ def mittelmann_dist_control(N: int) -> NLP:
     ii, jj = np.meshgrid(np.arange(1, N + 1), np.arange(1, N + 1), indexing="ij")
     x1 = ii.astype(np.float64) * h
     x2 = jj.astype(np.float64) * h
-    yd = _DeviceConstant(
+    yd = DeviceConstant(
         (np.sin(2.0 * np.pi * x1) * np.sin(2.0 * np.pi * x2)).reshape(-1))
 
     def f(x):
@@ -323,3 +308,266 @@ def mittelmann_dist_control(N: int) -> NLP:
     return NLP(f=f, g=g, g_L=np.zeros(m), g_U=np.zeros(m), x_L=x_L, x_U=x_U, x0=x0,
                jac_g_sparsity=(np.asarray(jr, np.int32), np.asarray(jc, np.int32)),
                lag_hess_sparsity=(diag, diag), name=f"mittelmann_dist_control_N{N}")
+
+
+def _lv_bounds(m: int, equality: bool):
+    """g_L, g_U of the LukVlE (g = 0) and LukVlI (-1 <= g <= 0) instances."""
+    return (np.zeros(m) if equality else np.full(m, -1.0)), np.zeros(m)
+
+
+def _lv_name(k: int, n: int, equality: bool) -> str:
+    return f"luksan_vlcek{k}_{'E' if equality else 'I'}{n}"
+
+
+def _window_sums(q, rows: int, total: int):
+    """sum_{k = max(0, i-5)}^{min(total-1, i+1)} q_k for i = 0..rows-1."""
+    cq = torch.cat([q.new_zeros(1), torch.cumsum(q, 0)])
+    i = torch.arange(rows, device=q.device)
+    lo = torch.clamp(i - 5, min=0)
+    hi = torch.clamp(i + 1, max=total - 1)
+    return cq[hi + 1] - cq[lo]
+
+
+def luksan_vlcek2(n: int, equality: bool = True) -> NLP:
+    """LuksanVlcek2 (``ipopt_tpu/modellib.py:195-242``): chained Wood-like
+    objective over variable pairs and the 11-wide window constraints
+    g_i = (2 + 5 x_{i+5}^2) x_{i+5} + 1 + sum_{k=max(0,i-5)}^{i+1} x_k (x_k + 1),
+    i = 0..n-10.  n % 2 == 0, n >= 12."""
+    assert n % 2 == 0 and n >= 12
+    m = n - 9
+
+    def f(x):
+        xe, xo, xe2, xo2 = x[0:n - 2:2], x[1:n - 1:2], x[2:n:2], x[3:n:2]
+        return (100.0 * (xe ** 2 - xo) ** 2 + (xe - 1.0) ** 2
+                + 90.0 * (xe2 ** 2 - xo2) ** 2 + (xe2 - 1.0) ** 2
+                + 10.0 * (xo + xo2 - 2.0) ** 2 + 0.1 * (xo - xo2) ** 2).sum()
+
+    def g(x):
+        x5 = x[5:5 + m]
+        return (2.0 + 5.0 * x5 ** 2) * x5 + 1.0 + _window_sums(x * (x + 1.0), m, n + 1)
+
+    x0 = np.empty(n)
+    x0[0::2] = -2.0
+    x0[1::2] = 1.0
+    g_L, g_U = _lv_bounds(m, equality)
+    return NLP(f=f, g=g, g_L=g_L, g_U=g_U, x0=x0, name=_lv_name(2, n, equality))
+
+
+def luksan_vlcek3(n: int, equality: bool = True) -> NLP:
+    """LuksanVlcek3 (``ipopt_tpu/modellib.py:669-702``): chained Powell
+    singular objective and two boundary constraints.  n % 4 == 0, n >= 8."""
+    assert n % 4 == 0 and n >= 8
+
+    def f(x):
+        xe, xo, xe2, xo2 = x[0:n - 2:2], x[1:n - 1:2], x[2:n:2], x[3:n:2]
+        return ((xe + 10.0 * xo) ** 2 + 5.0 * (xe2 - xo2) ** 2
+                + (xo - 2.0 * xe2) ** 4 + 10.0 * (xe - xo2) ** 4).sum()
+
+    def g(x):
+        return torch.stack([
+            3.0 * x[0] ** 3 + 2.0 * x[1] - 5.0
+            + torch.sin(x[0] - x[1]) * torch.sin(x[0] + x[1]),
+            4.0 * x[n - 3] - x[n - 4] * torch.exp(x[n - 4] - x[n - 3]) - 3.0])
+
+    x0 = np.empty(n)
+    x0[0::4], x0[1::4], x0[2::4], x0[3::4] = 3.0, -1.0, 0.0, 1.0
+    g_L, g_U = _lv_bounds(2, equality)
+    return NLP(f=f, g=g, g_L=g_L, g_U=g_U, x0=x0, name=_lv_name(3, n, equality))
+
+
+def luksan_vlcek4(n: int, equality: bool = True) -> NLP:
+    """LuksanVlcek4 (``ipopt_tpu/modellib.py:259-299``): chained exponential/
+    tangent objective over 4-wide windows and the cubic constraints
+    g_i = 8 x_{i+1}(x_{i+1}^2 - x_i) - 2(1 - x_{i+1}) + 4(x_{i+1} - x_{i+2}^2),
+    i = 0..n-5, with the declared sparsity of the reference (the Jacobian's
+    row i covers x_i..x_{i+2}, the Lagrangian Hessian is tridiagonal) for
+    ``linear_solver="banded-bcr"``.  n % 4 == 0, n >= 8."""
+    assert n % 4 == 0 and n >= 8
+    m = n - 4
+
+    def f(x):
+        x0, x1, x2, x3 = x[0:n - 2:2], x[1:n - 1:2], x[2:n:2], x[3:n:2]
+        return ((torch.exp(x0) - x1) ** 4 + 100.0 * (x1 - x2) ** 6
+                + torch.tan(x2 - x3) ** 4 + x0 ** 8 + (x3 - 1.0) ** 2).sum()
+
+    def g(x):
+        xi, xi1, xi2 = x[0:m], x[1:m + 1], x[2:m + 2]
+        return (8.0 * xi1 * (xi1 ** 2 - xi) - 2.0 * (1.0 - xi1)
+                + 4.0 * (xi1 - xi2 ** 2))
+
+    x0 = np.full(n, 2.0)
+    x0[0::4] = 1.0
+    g_L, g_U = _lv_bounds(m, equality)
+    return NLP(f=f, g=g, g_L=g_L, g_U=g_U, x0=x0, name=_lv_name(4, n, equality),
+               jac_g_sparsity=band_sparsity(m, n, 0, 2),
+               lag_hess_sparsity=band_sparsity(n, n, -1, 1))
+
+
+def luksan_vlcek5(n: int, equality: bool = True) -> NLP:
+    """LuksanVlcek5 (``ipopt_tpu/modellib.py:302-330``): chained |.|^(7/3)
+    tridiagonal objective and 5-wide cubic constraints, i = 0..n-7, x0 = -1,
+    with the declared sparsity of the reference (the Jacobian's row i covers
+    x_{i+1}..x_{i+5}, the Hessian has bandwidth 2).  n >= 8."""
+    assert n >= 8
+    m = n - 6
+
+    def f(x):
+        xm, xc, xp = x[0:n - 2], x[1:n - 1], x[2:n]
+        return (((3.0 - 2.0 * xc) * xc - xm - xp + 1.0).abs() ** (7.0 / 3.0)).sum()
+
+    def g(x):
+        x1, x2, x3, x4, x5 = (x[k:m + k] for k in range(1, 6))
+        return (8.0 * x3 * (x3 ** 2 - x2) - 2.0 * (1.0 - x3)
+                + 4.0 * (x3 - x4 ** 2) + x2 ** 2 - x1 + x4 - x5 ** 2)
+
+    g_L, g_U = _lv_bounds(m, equality)
+    return NLP(f=f, g=g, g_L=g_L, g_U=g_U, x0=np.full(n, -1.0),
+               name=_lv_name(5, n, equality),
+               jac_g_sparsity=band_sparsity(m, n, 1, 5),
+               lag_hess_sparsity=band_sparsity(n, n, -2, 2))
+
+
+def luksan_vlcek6(n: int, equality: bool = True) -> NLP:
+    """LuksanVlcek6 (``ipopt_tpu/modellib.py:333-366``): chained |.|^(7/3)
+    objective over a 7-wide window sum and exponential constraints over
+    variable pairs, (n-1)/2 rows, x0 = 3.  Odd n >= 3."""
+    assert n % 2 == 1 and n >= 3
+    N = n - 1
+    m = N // 2
+
+    def f(x):
+        xs = x[:N]
+        b = (2.0 + 5.0 * xs ** 2) * xs + 1.0 + _window_sums(xs * (1.0 + xs), N, N)
+        return (b.abs() ** (7.0 / 3.0)).sum()
+
+    def g(x):
+        xe, xo, xe2 = x[0:2 * m:2], x[1:2 * m + 1:2], x[2:2 * m + 2:2]
+        return 4.0 * xo - (xe - xe2) * torch.exp(xe - xo - xe2) - 3.0
+
+    g_L, g_U = _lv_bounds(m, equality)
+    return NLP(f=f, g=g, g_L=g_L, g_U=g_U, x0=np.full(n, 3.0),
+               name=_lv_name(6, n, equality))
+
+
+def luksan_vlcek7(n: int, equality: bool = True) -> NLP:
+    """LuksanVlcek7 (``ipopt_tpu/modellib.py:369-400``): chained
+    trigonometric objective with linearly growing weights and four boundary
+    constraints, x0 = 1.  n >= 5."""
+    assert n >= 5
+    N = n - 2
+
+    def f(x):
+        i = torch.arange(1, N + 1, device=x.device).to(x.dtype)
+        return (i * ((1.0 - torch.cos(x[1:N + 1])) + torch.sin(x[0:N])
+                     - torch.sin(x[2:N + 2]))).sum()
+
+    def g(x):
+        return torch.stack([
+            4.0 * (x[1] - x[2] ** 2) + x[2] - x[3] ** 2,
+            8.0 * x[2] * (x[2] ** 2 - x[1]) - 2.0 * (1.0 - x[2])
+            + 4.0 * (x[2] - x[3] ** 2) + x[3] - x[4] ** 2,
+            8.0 * x[N - 1] * (x[N - 1] ** 2 - x[N - 2])
+            - 2.0 * (1.0 - x[N - 1]) + 4.0 * (x[N - 1] - x[N] ** 2)
+            + x[N - 2] ** 2 - x[N - 3],
+            8.0 * x[N] * (x[N] ** 2 - x[N - 1]) - 2.0 * (1.0 - x[N])
+            + x[N - 1] ** 2 - x[N - 2]])
+
+    g_L, g_U = _lv_bounds(4, equality)
+    return NLP(f=f, g=g, g_L=g_L, g_U=g_U, x0=np.full(n, 1.0),
+               name=_lv_name(7, n, equality))
+
+
+# example -> (alpha, ub_y, lb_u, ub_u) of MittelmannBndryCntrlDiri 1-4
+# (MittelmannBndryCntrlDiri.hpp:281-298, :329-346, :380-397, :432-448); all
+# share d_const = -20 and y_d(x1, x2) = 3 + 5 x1 (x1 - 1) x2 (x2 - 1)
+_MITTELMANN_EXAMPLES = {1: (0.01, 3.5, 0.0, 10.0), 2: (0.0, 3.5, 0.0, 10.0),
+                        3: (0.01, 3.2, 1.6, 2.3), 4: (0.0, 3.2, 1.6, 2.3)}
+
+
+def _bndry_grid(N: int, example: int):
+    """(y_d, interior-term weights, control-term weights) on the (N+2)^2 grid."""
+    alpha = _MITTELMANN_EXAMPLES[example][0]
+    Ng = N + 2
+    h = 1.0 / (N + 1)
+    ij = np.arange(Ng) * h
+    y_d = 3.0 + 5.0 * (ij[:, None] * (ij[:, None] - 1.0)
+                       * ij[None, :] * (ij[None, :] - 1.0))
+    interior = np.zeros((Ng, Ng), bool)
+    interior[1:-1, 1:-1] = True
+    return (y_d, np.where(interior, h * h / 2.0, 0.0),
+            np.where(~interior, alpha * h / 2.0, 0.0), interior)
+
+
+def _bndry_obj(rows, yd, wi, wc):
+    return (wi * (rows - yd) ** 2).sum() + (wc * rows ** 2).sum()
+
+
+def _bndry_f_stage(xk, xk1, theta):
+    return _bndry_obj(xk.reshape(2, -1), theta["yd"], theta["wi"], theta["wc"])
+
+
+def _bndry_g_stage(xk, xk1, theta):
+    """The 5-point stencil rows centred in the two grid rows between the
+    groups: 4 y_c - y_up - y_down - y_left - y_right."""
+    w = torch.cat([xk.reshape(2, -1), xk1.reshape(2, -1)])
+
+    def pde(up, c, dn):
+        return 4.0 * c[1:-1] - up[1:-1] - dn[1:-1] - c[:-2] - c[2:]
+
+    return torch.cat([pde(w[0], w[1], w[2]), pde(w[1], w[2], w[3])])
+
+
+_BNDRY_LAST = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class _BndryLast:
+    """The objective terms of the last two grid rows (compared by value, so
+    that two instances of one model share one ChainInfo)."""
+
+    N: int
+    example: int
+
+    def __call__(self, xK):
+        c = _BNDRY_LAST.get((self.N, self.example))
+        if c is None:
+            y_d, w_int, w_ctl, _ = _bndry_grid(self.N, self.example)
+            c = _BNDRY_LAST[(self.N, self.example)] = tuple(
+                DeviceConstant(a[-2:]) for a in (y_d, w_int, w_ctl))
+        return _bndry_obj(xK.reshape(2, -1), *(t.like(xK) for t in c))
+
+
+def mittelmann_bndry_control(N: int, example: int = 1) -> ChainedNLP:
+    """MittelmannBndryCntrlDiri 1-4 (``ipopt_tpu/modellib.py:406-486``;
+    examples/ScalableProblems/MittelmannBndryCntrlDiri.{hpp,cpp}): 2-D
+    Poisson Dirichlet boundary control on the unit square,
+
+        min  hh/2 sum_int (y_ij - y_d)^2 + alpha h/2 sum_bnd y^2
+        s.t. 4 y_ij - y_{i-1,j} - y_{i+1,j} - y_{i,j-1} - y_{i,j+1}
+                 = -hh d_const                 (interior i, j = 1..N)
+             y_int <= ub_y,  lb_u <= y_bnd <= ub_u
+
+    on an (N+2)^2 grid, h = 1/(N+1); the controls are the boundary values
+    of y.  Chained over pairs of grid rows (group k = rows 2k, 2k+1), so the
+    KKT is block-tridiagonal with v = 2(N+2) and 2N constraint rows per
+    stage.  As in the reference, the four corners are bounded controls with
+    the control weight.  Even N >= 2."""
+    if N % 2 or N < 2:
+        raise ValueError(f"need even N >= 2, got {N}")
+    _, ub_y, lb_u, ub_u = _MITTELMANN_EXAMPLES[example]
+    Ng = N + 2
+    h = 1.0 / (N + 1)
+    K = Ng // 2 - 1
+    y_d, w_int, w_ctl, interior = _bndry_grid(N, example)
+    theta = {name: np.stack([a[2 * k:2 * k + 2] for k in range(K)])
+             for name, a in (("yd", y_d), ("wi", w_int), ("wc", w_ctl))}
+    rhs = -(h * h) * -20.0  # -hh * d_const
+    x_L = np.where(interior, -1e20, lb_u)
+    x_U = np.where(interior, ub_y, ub_u)
+    x0 = np.where(interior, y_d, 0.5 * (lb_u + ub_u))
+    return ChainedNLP(
+        f_stage=_bndry_f_stage, g_stage=_bndry_g_stage,
+        f_last=_BndryLast(N, example), theta=theta, x0=x0.reshape(K + 1, 2 * Ng),
+        g_L=np.full((K, 2 * N), rhs), g_U=np.full((K, 2 * N), rhs),
+        x_L=x_L.reshape(K + 1, 2 * Ng), x_U=x_U.reshape(K + 1, 2 * Ng),
+        name=f"mittelmann_bndry{example}_N{N}")

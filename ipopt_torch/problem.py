@@ -27,7 +27,7 @@ import torch
 from torch.func import grad, grad_and_value, hessian, jacfwd, vjp, vmap
 
 from .options import Options
-from .types import tree_map, tree_take
+from .types import DeviceConstant, tree_map, tree_take
 
 
 @dataclasses.dataclass
@@ -41,7 +41,9 @@ class NLP:
     (rows, cols) COO patterns of dg/dx and of the Lagrangian Hessian (either
     triangle or full) for ``linear_solver="banded-bcr"``
     (``ipopt_torch.sparse``); without them that backend detects the patterns
-    of a small problem.  ``canonicalize`` ignores them.
+    of a small problem.  ``canonicalize`` ignores them.  ``y0``, ``z_L0``
+    and ``z_U0`` are starting multipliers, read only with
+    ``warm_start_init_point=True``.
     """
 
     f: Callable[..., Any]
@@ -55,6 +57,11 @@ class NLP:
     jac_g_sparsity: Optional[Any] = None
     lag_hess_sparsity: Optional[Any] = None
     name: str = "nlp"
+    # starting multipliers for a warm start (warm_start_init_point): y0 (m,)
+    # in user constraint order, z_L0 / z_U0 (n_full,)
+    y0: Optional[Any] = None
+    z_L0: Optional[Any] = None
+    z_U0: Optional[Any] = None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -289,6 +296,48 @@ def _as_np(v, size=None, default=None):
     return a
 
 
+def _constant_surrogates(f2, g2, x0, eq_mask, opts: Options, dtype):
+    """The constant-derivative flags (grad_f_constant / jac_c_constant /
+    jac_d_constant / hessian_constant, ``ipopt_tpu/problem.py:373-420``):
+    the user promises (partial) linearity, so the exact Taylor surrogate at
+    x0 replaces the function; its derivatives are then constants."""
+    xc = torch.as_tensor(x0, dtype=dtype)
+    X0 = DeviceConstant(xc)
+    if opts.grad_f_constant or opts.hessian_constant:
+        f_user = f2
+        with torch.no_grad():
+            F0 = DeviceConstant(f_user(xc, ()))
+        GF0 = DeviceConstant(grad(lambda x: f_user(x, ()))(xc))
+        if opts.hessian_constant:
+            H0 = DeviceConstant(hessian(lambda x: f_user(x, ()))(xc))
+
+            def f2(x, p):
+                dx = x - X0.like(x)
+                return (F0.like(x) + GF0.like(x) @ dx
+                        + 0.5 * dx @ (H0.like(x) @ dx))
+        else:
+            def f2(x, p):
+                return F0.like(x) + GF0.like(x) @ (x - X0.like(x))
+    if g2 is not None and (opts.hessian_constant or opts.jac_c_constant
+                           or opts.jac_d_constant):
+        g_user = g2
+        with torch.no_grad():
+            G0 = DeviceConstant(g_user(xc, ()))
+        J0 = DeviceConstant(jacfwd(lambda x: g_user(x, ()))(xc))
+
+        def lin(x):
+            return G0.like(x) + J0.like(x) @ (x - X0.like(x))
+        if opts.hessian_constant or (opts.jac_c_constant and opts.jac_d_constant):
+            def g2(x, p):
+                return lin(x)
+        else:
+            cmask = DeviceConstant(eq_mask if opts.jac_c_constant else ~eq_mask)
+
+            def g2(x, p):
+                return torch.where(cmask.like(x), lin(x), g_user(x, p))
+    return f2, g2
+
+
 def canonicalize(nlp: NLP, options: Optional[Options] = None, dtype=None,
                  device=None) -> CanonicalNLP:
     """Build the canonical internal form of one problem (B = 1).
@@ -300,11 +349,6 @@ def canonicalize(nlp: NLP, options: Optional[Options] = None, dtype=None,
     solver entry points move the result to the card.
     """
     opts = options or Options()
-    for name in ("grad_f_constant", "hessian_constant", "jac_c_constant",
-                 "jac_d_constant"):
-        if getattr(opts, name):
-            from .algorithm.solver import UnsupportedOptionError
-            raise UnsupportedOptionError(name, True)
     if dtype is None:
         dtype = torch.float64 if opts.dtype == "float64" else torch.float32
     device = torch.device("cpu") if device is None else torch.device(device)
@@ -371,6 +415,13 @@ def canonicalize(nlp: NLP, options: Optional[Options] = None, dtype=None,
     eq_idx = np.nonzero(eq_mask)[0].astype(np.int32)
     ineq_idx = np.nonzero(~eq_mask)[0].astype(np.int32)
     me, mi = len(eq_idx), len(ineq_idx)
+    if (opts.grad_f_constant or opts.hessian_constant or opts.jac_c_constant
+            or opts.jac_d_constant):
+        if nlp.params is not None:
+            raise ValueError(
+                "grad_f_constant / jac_*_constant / hessian_constant require a "
+                "parameter-free NLP (the surrogate is built at x0 once)")
+        f2, g2 = _constant_surrogates(f2, g2, x0, eq_mask, opts, dtype)
 
     # Fixed variable treatment (IpTNLPAdapter.cpp:463-631).
     fixed_mask = (x_L == x_U)

@@ -171,3 +171,21 @@ def col(v):
     if isinstance(v, torch.Tensor) and v.dim() == 1:
         return v.unsqueeze(-1)
     return v
+
+
+class DeviceConstant:
+    """A constant array made once on the host and handed out on the device of
+    each call's argument: floating values in its dtype, integer and boolean
+    values (indices, masks) in their own (one copy per device and dtype)."""
+
+    def __init__(self, value):
+        self.value = torch.as_tensor(value).detach()
+        self._copies = {}
+
+    def like(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = x.dtype if self.value.is_floating_point() else self.value.dtype
+        key = (x.device, dtype)
+        t = self._copies.get(key)
+        if t is None:
+            t = self._copies[key] = self.value.to(device=x.device, dtype=dtype)
+        return t

@@ -172,7 +172,9 @@ def test_no_port_module_imports_jax():
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(paths) > 20
     rel = {os.path.relpath(p, REPO) for p in paths}
-    assert {"ipopt_torch/sparse.py", "ipopt_torch/algorithm/banded_resto.py"} <= rel
+    assert {"ipopt_torch/sparse.py", "ipopt_torch/algorithm/banded_resto.py",
+            "ipopt_torch/interfaces/transforms.py",
+            "ipopt_torch/interfaces/dependency.py"} <= rel
     bad = [(os.path.relpath(p, REPO), m) for p in paths for m in _imports(p)
            if m.split(".")[0] in ("jax", "jaxlib", "ipopt_tpu")]
     assert not bad, bad

@@ -104,7 +104,8 @@ def test_options_match_reference():
 
 def test_port_imports_no_jax():
     code = ("import sys, ipopt_torch, ipopt_torch.convert, ipopt_torch.batch, "
-            "ipopt_torch.algorithm.restoration, chip_smoke\n"
+            "ipopt_torch.algorithm.restoration, ipopt_torch.interfaces.transforms, "
+            "ipopt_torch.interfaces.dependency, chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ipopt_tpu')]\n"
             "assert not bad, bad\n")
@@ -254,9 +255,10 @@ def test_solve_without_device_needs_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("opt", [
-    dict(mu_strategy="adaptive"), dict(hessian_approximation="limited-memory"),
+    dict(derivative_test="first-order"), dict(hessian_approximation="limited-memory"),
     dict(linear_solver="multifrontal"), dict(line_search_method="cg-penalty"),
-    dict(inexact_algorithm=True), dict(mehrotra_algorithm=True)])
+    dict(inexact_algorithm=True),
+    dict(gradient_approximation="finite-difference-values")])
 def test_unported_option_rejected(opt):
     with pytest.raises(UnsupportedOptionError):
         ipopt_torch.solve(ipopt_torch.modellib.hs071(), device="cpu", **opt)

@@ -246,6 +246,26 @@ def test_banded_solve_matches_reference(case, ref_solves):
     np.testing.assert_allclose(float(res_p.obj), float(res_r.obj), rtol=1e-9)
 
 
+def test_banded_solve_with_mc19_matches_reference():
+    """Mittelmann's distributed control at N = 12 with the symmetric
+    equilibration of every BCR level (linear_system_scaling="mc19"): the
+    same status, iterations and factorizations as the reference (0, 16, 39),
+    the trace to rtol 1e-7 and the objective to 1e-9."""
+    kw = dict(OPTS, resto_phase=False, linear_system_scaling="mc19")
+    rows_r, cb_r = _trace()
+    res_r = ipopt_tpu.solve(ref_models.mittelmann_dist_control(12), print_level=0,
+                            intermediate_callback=cb_r, **kw)
+    rows_p, cb_p = _trace()
+    res_p = ipopt_torch.solve(modellib.mittelmann_dist_control(12), device="cpu",
+                              print_level=0, intermediate_callback=cb_p, **kw)
+    got = [(int(r.status), int(r.iter_count), int(r.counters.n_factorizations))
+           for r in (res_p, res_r)]
+    assert got[0] == got[1] == (0, 16, 39)
+    t_p, t_r = np.array(rows_p), np.array(rows_r)
+    np.testing.assert_allclose(t_p[:, 1:], t_r[:, 1:], rtol=1e-7, atol=1e-10)
+    np.testing.assert_allclose(float(res_p.obj), float(res_r.obj), rtol=1e-9)
+
+
 def _infeasible(pkg):
     """tests/test_sparse_backend.py:146-163: a consistent chain plus the
     rows x0 = 1 and x0 = -1 (n = 12)."""

@@ -1,0 +1,327 @@
+"""The solves that the port's parity tests hold against the reference's
+recorded results: each case names a problem, built by either package, and
+its options.  ``tools/torch_reference_values.py`` solves every case with
+the JAX reference (float64, CPU) and writes the results to
+``tests/torch_reference_values.json``; ``tests/test_torch_adaptive.py``,
+``test_torch_options.py`` and ``test_torch_suites.py`` solve the same cases
+with the port and compare.  A case with ``warm`` starts from the iterate of
+the case it names, solved by the same package.
+
+This module imports neither package at its top, so that the tool can load
+it with the reference alone.
+"""
+import numpy as np
+
+BENCH = dict(tol=1e-8, acceptable_tol=1e-6, acceptable_iter=10)
+WARM = dict(warm_start_init_point=True, mu_init=1e-6, bound_mult_init_val=1e-3)
+ADAPTIVE = dict(mu_strategy="adaptive")
+MEHROTRA = dict(mehrotra_algorithm=True)
+
+# The robustness set of tests/problems.py:289 and two HS problems, as
+# (f, g, bounds) in the functions of either package: ``m`` is the module
+# (jax.numpy or torch) and ``arr`` builds a 1-D array of it.
+HS_SPECS = {
+    "hs002": lambda m, arr: dict(
+        f=lambda x: 100.0 * (x[1] - x[0] ** 2) ** 2 + (1.0 - x[0]) ** 2,
+        x_L=np.array([-np.inf, 1.5]), x0=np.array([-2.0, 1.0])),
+    "hs003": lambda m, arr: dict(
+        f=lambda x: x[1] + 1e-5 * (x[1] - x[0]) ** 2,
+        x_L=np.array([-np.inf, 0.0]), x0=np.array([10.0, 1.0])),
+    "hs004": lambda m, arr: dict(
+        f=lambda x: (x[0] + 1.0) ** 3 / 3.0 + x[1],
+        x_L=np.array([1.0, 0.0]), x0=np.array([1.125, 0.15])),
+    "hs005": lambda m, arr: dict(
+        f=lambda x: (m.sin(x[0] + x[1]) + (x[0] - x[1]) ** 2
+                     - 1.5 * x[0] + 2.5 * x[1] + 1.0),
+        x_L=np.array([-1.5, -3.0]), x_U=np.array([4.0, 3.0]),
+        x0=np.array([0.0, 0.0])),
+    "hs010": lambda m, arr: dict(
+        f=lambda x: x[0] - x[1],
+        g=lambda x: arr([-3.0 * x[0] ** 2 + 2.0 * x[0] * x[1] - x[1] ** 2 + 1.0]),
+        g_L=np.array([0.0]), g_U=np.array([np.inf]), x0=np.array([-10.0, 10.0])),
+    "hs011": lambda m, arr: dict(
+        f=lambda x: (x[0] - 5.0) ** 2 + x[1] ** 2 - 25.0,
+        g=lambda x: arr([-x[0] ** 2 + x[1]]),
+        g_L=np.array([0.0]), g_U=np.array([np.inf]), x0=np.array([4.9, 0.1])),
+    "hs014": lambda m, arr: dict(
+        f=lambda x: (x[0] - 2.0) ** 2 + (x[1] - 1.0) ** 2,
+        g=lambda x: arr([x[0] - 2.0 * x[1] + 1.0,
+                         -0.25 * x[0] ** 2 - x[1] ** 2 + 1.0]),
+        g_L=np.array([0.0, 0.0]), g_U=np.array([0.0, np.inf]),
+        x0=np.array([2.0, 2.0])),
+    "hs033": lambda m, arr: dict(
+        f=lambda x: (x[0] - 1.0) * (x[0] - 2.0) * (x[0] - 3.0) + x[2],
+        g=lambda x: arr([x[2] ** 2 - x[1] ** 2 - x[0] ** 2,
+                         x[0] ** 2 + x[1] ** 2 + x[2] ** 2 - 4.0]),
+        g_L=np.array([0.0, 0.0]), g_U=np.array([np.inf, np.inf]),
+        x_L=0.0, x_U=np.array([np.inf, np.inf, 5.0]), x0=np.array([0.0, 0.0, 3.0])),
+    "hs048": lambda m, arr: dict(
+        f=lambda x: (x[0] - 1.0) ** 2 + (x[1] - x[2]) ** 2 + (x[3] - x[4]) ** 2,
+        g=lambda x: arr([x[0] + x[1] + x[2] + x[3] + x[4] - 5.0,
+                         x[2] - 2.0 * (x[3] + x[4]) + 3.0]),
+        g_L=np.zeros(2), g_U=np.zeros(2), x0=np.array([3.0, 5.0, -3.0, 2.0, -2.0])),
+    "hs110": lambda m, arr: dict(
+        f=lambda x: (m.sum(m.log(x - 2.0) ** 2 + m.log(10.0 - x) ** 2)
+                     - m.prod(x) ** 0.2),
+        x_L=2.001, x_U=9.999, x0=np.full(10, 9.0)),
+    "hs035": lambda m, arr: dict(
+        f=lambda x: (9.0 - 8 * x[0] - 6 * x[1] - 4 * x[2] + 2 * x[0] ** 2
+                     + 2 * x[1] ** 2 + x[2] ** 2 + 2 * x[0] * x[1]
+                     + 2 * x[0] * x[2]),
+        g=lambda x: arr([3.0 - x[0] - x[1] - 2 * x[2]]),
+        g_L=np.array([0.0]), g_U=np.array([np.inf]), x_L=0.0,
+        x0=np.array([0.5, 0.5, 0.5])),
+    # Rosenbrock from the classic start (tests/test_wired_options.py:27)
+    "rosenbrock": lambda m, arr: dict(
+        f=lambda x: 100.0 * (x[1] - x[0] ** 2) ** 2 + (1.0 - x[0]) ** 2,
+        x0=np.array([-1.2, 1.0])),
+    # with one active equality (test_wired_options.py:95)
+    "rosenbrock_eq": lambda m, arr: dict(
+        f=lambda x: 100.0 * (x[1] - x[0] ** 2) ** 2 + (1.0 - x[0]) ** 2,
+        g=lambda x: arr([x[0] + x[1]]), g_L=np.array([0.5]), g_U=np.array([0.5]),
+        x0=np.array([-1.2, 1.0])),
+    # infeasible: x in [0, 1]^2 but x1 + x2 = 5 (test_wired_options.py:68)
+    "infeasible": lambda m, arr: dict(
+        f=lambda x: m.sum(x ** 2), g=lambda x: arr([x[0] + x[1]]),
+        g_L=np.array([5.0]), g_U=np.array([5.0]), x_L=0.0, x_U=1.0,
+        x0=np.array([0.5, 0.5])),
+    # the constant-derivative problems of test_wired_options.py:380-425
+    "linear_obj": lambda m, arr: dict(
+        f=lambda x: 2.0 * x[0] + 3.0 * x[1],
+        g=lambda x: arr([x[0] ** 2 + x[1] ** 2]), g_L=np.array([1.0]),
+        g_U=np.array([1.0]), x0=np.array([0.5, 0.5])),
+    "linear_eq": lambda m, arr: dict(
+        f=lambda x: (x[0] - 1.0) ** 4 + (x[1] + 2.0) ** 2,
+        g=lambda x: arr([x[0] + 2.0 * x[1]]), g_L=np.array([3.0]),
+        g_U=np.array([3.0]), x0=np.array([0.0, 0.0])),
+    "qp": lambda m, arr: dict(
+        f=lambda x: x[0] ** 2 + 2.0 * x[1] ** 2 + x[0] * x[1] - 4.0 * x[0],
+        g=lambda x: arr([x[0] + x[1]]), g_L=np.array([1.0]),
+        g_U=np.array([2e19]), x0=np.array([2.0, 2.0])),
+    # a Jacobian that blows up at x = 0 (test_wired_options.py:497)
+    "sqrt_row": lambda m, arr: dict(
+        f=lambda x: m.sum((x - 2.0) ** 2), g=lambda x: arr([m.sqrt(x[0])]),
+        x_L=np.array([-5.0]), x_U=np.array([5.0]), g_L=np.array([-10.0]),
+        g_U=np.array([10.0]), x0=np.array([1.0])),
+    # hs048 with its first row twice: one dependent equality
+    "hs048_dup": lambda m, arr: dict(
+        f=lambda x: (x[0] - 1.0) ** 2 + (x[1] - x[2]) ** 2 + (x[3] - x[4]) ** 2,
+        g=lambda x: arr([x[0] + x[1] + x[2] + x[3] + x[4] - 5.0,
+                         x[2] - 2.0 * (x[3] + x[4]) + 3.0,
+                         2.0 * (x[0] + x[1] + x[2] + x[3] + x[4] - 5.0)]),
+        g_L=np.zeros(3), g_U=np.zeros(3), x0=np.array([3.0, 5.0, -3.0, 2.0, -2.0])),
+    # HS071 with its equality moved to 40 + d (test_warmstart_derivcheck.py:11)
+    "hs071_d0": lambda m, arr: _hs071_spec(m, arr, 0.0),
+    "hs071_d001": lambda m, arr: _hs071_spec(m, arr, 0.01),
+    # HS071 with starting multipliers for a warm start from them
+    "hs071_y0": lambda m, arr: dict(
+        _hs071_spec(m, arr, 0.0), y0=np.array([-0.55, 0.16]),
+        z_L0=np.array([1.09, 0.0, 0.0, 0.0]), z_U0=np.zeros(4)),
+}
+
+
+# lanes 0, 255 and 511 of the 512-instance HS071 family (bench.py:121-133)
+for _i in (0, 255, 511):
+    HS_SPECS[f"hs071_fam{_i}"] = (lambda m, arr, d=0.005 * _i:
+                                  _hs071_spec(m, arr, d))
+
+
+def _hs071_spec(m, arr, d):
+    return dict(f=lambda x: x[0] * x[3] * (x[0] + x[1] + x[2]) + x[2],
+                g=lambda x: arr([x[0] * x[1] * x[2] * x[3],
+                                 x[0] ** 2 + x[1] ** 2 + x[2] ** 2 + x[3] ** 2]),
+                x_L=1.0, x_U=5.0, g_L=np.array([25.0, 40.0 + d]),
+                g_U=np.array([2e19, 40.0 + d]), x0=np.array([1.0, 5.0, 5.0, 1.0]))
+
+
+def build(problem, pkg: str):
+    """The problem ``problem`` built by ``pkg`` ("ref" or "port"): a key of
+    HS_SPECS, or a (modellib function, args) pair."""
+    if pkg == "ref":
+        import jax.numpy as m
+        import ipopt_tpu as P
+        arr = m.array
+    else:
+        import torch as m
+        import ipopt_torch as P
+        arr = m.stack
+    if isinstance(problem, str):
+        return P.NLP(name=problem, **HS_SPECS[problem](m, arr))
+    fn, args = problem
+    return getattr(P.modellib, fn)(*args)
+
+
+def _c(problem, opts=None, warm=None, suite="options", **flags):
+    return dict(problem=problem, opts=dict(opts or {}), warm=warm, suite=suite,
+                **flags)
+
+
+CASES = {}
+# -- adaptive mu (tests/test_adaptive_mu.py, test_wired_options.py) --------
+for _name, _opts in {
+        "hs071_probing": dict(ADAPTIVE, mu_oracle="probing"),
+        "hs071_loqo": dict(ADAPTIVE, mu_oracle="loqo"),
+        "hs071_glob_kkt_error": dict(ADAPTIVE, adaptive_mu_globalization="kkt-error"),
+        "hs071_glob_never": dict(ADAPTIVE,
+                                 adaptive_mu_globalization="never-monotone-mode"),
+        "hs071_mehrotra": MEHROTRA,
+        "hs071_mehrotra_full_steps": dict(MEHROTRA, accept_every_trial_step=True),
+        "hs071_corr_primal_dual": dict(MEHROTRA, corrector_type="primal-dual"),
+        "hs071_corr_monotone": dict(corrector_type="affine",
+                                    skip_corr_in_monotone_mode=False),
+        "hs071_qf_1norm": dict(ADAPTIVE, quality_function_norm_type="1-norm"),
+        "hs071_qf_max_log": dict(ADAPTIVE, quality_function_norm_type="max-norm",
+                                 quality_function_centrality="log"),
+        "hs071_qf_2norm_recip_cubic": dict(
+            ADAPTIVE, quality_function_norm_type="2-norm",
+            quality_function_centrality="reciprocal",
+            quality_function_balancing_term="cubic"),
+        "hs071_qf_cubed_recip": dict(ADAPTIVE,
+                                     quality_function_centrality="cubed-reciprocal"),
+        "hs071_qf_sigma_tol": dict(ADAPTIVE, quality_function_section_sigma_tol=0.9),
+        "hs071_safeguard": dict(ADAPTIVE, adaptive_mu_safeguard_factor=0.01),
+        "hs071_mu_max_fact": dict(ADAPTIVE, mu_max_fact=1e-3),
+        "hs071_mu_max": dict(ADAPTIVE, mu_max=10.0),
+        "hs071_fixed_oracle_probing": dict(ADAPTIVE, fixed_mu_oracle="probing",
+                                           adaptive_mu_globalization="kkt-error"),
+        "hs071_kkt_1norm_restore": dict(
+            ADAPTIVE, adaptive_mu_globalization="kkt-error",
+            adaptive_mu_kkt_norm_type="1-norm",
+            adaptive_mu_restore_previous_iterate=True),
+        "hs071_kkt_max_norm": dict(ADAPTIVE, adaptive_mu_kkt_norm_type="max-norm"),
+}.items():
+    CASES[_name] = _c("hs071_d0", _opts, suite="adaptive")
+CASES["hs035_adaptive"] = _c("hs035", ADAPTIVE, suite="adaptive")
+# the lanes that chip_smoke.py holds against the reference (phase E1)
+for _i in (0, 255, 511):
+    CASES[f"fam{_i}_adaptive"] = _c(f"hs071_fam{_i}", dict(BENCH, **ADAPTIVE),
+                                    suite="adaptive")
+    CASES[f"fam{_i}_mehrotra"] = _c(f"hs071_fam{_i}", dict(BENCH, **MEHROTRA),
+                                    suite="adaptive")
+# chip_smoke.py's phase E2 (too long for the CPU test run)
+CASES["lv1_4096_adaptive"] = _c(("luksan_vlcek1", (4096, 32)),
+                                dict(BENCH, **ADAPTIVE), suite="chip")
+CASES["hs014_adaptive"] = _c("hs014", ADAPTIVE, suite="adaptive")
+CASES["infeasible_adaptive"] = _c("infeasible", ADAPTIVE, suite="adaptive")
+# The boundary control's trajectories are chaotic: a change of 1e-15 in x0
+# changes the iteration count of either package (test_torch_suites.py shows
+# it for the port), so these cases hold status and objective only (rtol 1e-7)
+CASES["mitt10_adaptive"] = _c(("mittelmann_bndry_control", (10, 1)),
+                              dict(BENCH, **ADAPTIVE), suite="adaptive", chaotic=True)
+
+# -- warm starts (test_warmstart_derivcheck.py:19-31) ----------------------
+CASES["hs071_cold_d0"] = _c("hs071_d0")
+CASES["hs071_cold_d001"] = _c("hs071_d001")
+CASES["hs071_warm_d001"] = _c("hs071_d001", WARM, warm="hs071_cold_d0")
+CASES["hs071_warm_target_mu"] = _c("hs071_d001", dict(WARM, warm_start_target_mu=1e-4),
+                                   warm="hs071_cold_d0")
+CASES["hs071_warm_entire"] = _c("hs071_d001", dict(WARM, warm_start_entire_iterate=True),
+                                warm="hs071_cold_d0")
+CASES["hs071_y0"] = _c("hs071_y0", WARM)
+CASES["mitt10_ex1"] = _c(("mittelmann_bndry_control", (10, 1)), suite="suites",
+                         chaotic=True, record_iterate=True)
+CASES["mitt10_ex3"] = _c(("mittelmann_bndry_control", (10, 3)), suite="suites",
+                         chaotic=True)
+# from the reference's final iterate of example 1 (recorded), in both
+# packages; chaotic too (1e-15 in that iterate changes the port's count)
+CASES["mitt10_ex3_warm"] = _c(("mittelmann_bndry_control", (10, 3)), WARM,
+                              warm="mitt10_ex1", chaotic=True)
+
+# -- the other options (test_wired_options.py, test_termination.py) --------
+for _name, (_prob, _opts) in {
+        "counters": ("hs071_d0", dict(tol=1e-8)),
+        "wall_generous": ("hs071_d0", dict(tol=1e-8, max_wall_time=3600.0)),
+        "magic_steps": ("hs071_d0", dict(magic_steps=True)),
+        "magic_steps_hs014": ("hs014", dict(magic_steps=True)),
+        "recalc_y": ("rosenbrock_eq", dict(tol=1e-8, recalc_y=True,
+                                           recalc_y_feas_tol=1e-1)),
+        "expect_infeasible": ("infeasible", dict(expect_infeasible_problem=True,
+                                                 expect_infeasible_problem_ytol=1e-8)),
+        "expect_infeasible_feasible": ("hs071_d0", dict(expect_infeasible_problem=True)),
+        "start_with_resto": ("hs071_d0", dict(tol=1e-8, start_with_resto=True)),
+        "accept_after_max_steps": ("rosenbrock", dict(tol=1e-8,
+                                                      accept_after_max_steps=0)),
+        "accept_every_trial_step": ("hs071_d0", dict(accept_every_trial_step=True)),
+        "soc_method_1": ("hs014", dict(soc_method=1)),
+        "soc_method_1_hs010": ("hs010", dict(soc_method=1)),
+        "ls_init_primal": ("hs071_d0", dict(tol=1e-8, least_square_init_primal=True)),
+        "ls_init_duals": ("hs071_d0", dict(tol=1e-8, least_square_init_duals=True)),
+        "mult_init_mu_based": ("hs071_d0", dict(bound_mult_init_method="mu-based")),
+        "equilibration": ("hs071_d0", dict(nlp_scaling_method="equilibration-based")),
+        "user_scaling": ("hs071_d0", dict(nlp_scaling_method="user-scaling",
+                                          obj_scaling_factor=0.5)),
+        "grad_f_constant": ("linear_obj", dict(tol=1e-8, grad_f_constant=True)),
+        "jac_c_constant": ("linear_eq", dict(tol=1e-8, jac_c_constant=True)),
+        "hessian_constant": ("qp", dict(tol=1e-8, hessian_constant=True)),
+        "slow_monotone": ("hs071_d0", dict(tol=1e-8,
+                                           mu_allow_fast_monotone_decrease=False)),
+        "fast_step": ("hs071_d0", dict(fast_step_computation=True)),
+        "naninf_check": ("sqrt_row", dict(max_iter=50, check_derivatives_for_naninf=True,
+                                          bound_relax_factor=0.0)),
+        "honor_bounds": ("hs071_d0", dict(honor_original_bounds=True)),
+        "replace_bounds": ("hs071_d0", dict(replace_bounds=True)),
+        "dependency": ("hs048_dup", dict(dependency_detector="mumps")),
+}.items():
+    CASES[_name] = _c(_prob, _opts)
+
+# -- the problem suites (tests/problems.py:289, test_robustness_suite.py,
+#    test_scalable_suite.py) ---------------------------------------------
+for _hs in ("hs002", "hs003", "hs004", "hs005", "hs010", "hs011", "hs014",
+            "hs033", "hs048", "hs110"):
+    CASES[f"robust_{_hs}"] = _c(_hs, suite="suites")
+for _k, _n in ((2, 20), (3, 20), (4, 16), (5, 16), (6, 17), (7, 16)):
+    for _eq in (True, False):
+        CASES[f"lv{_k}{'E' if _eq else 'I'}"] = _c(
+            (f"luksan_vlcek{_k}", (_n, _eq)), suite="suites")
+
+
+def suite_cases(suite: str):
+    return sorted(k for k, v in CASES.items() if v["suite"] == suite)
+
+
+def recorded() -> dict:
+    """The reference's recorded results (tests/torch_reference_values.json)."""
+    global _RECORDED
+    if _RECORDED is None:
+        import json
+        import os
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "torch_reference_values.json")) as fh:
+            _RECORDED = json.load(fh)
+    return _RECORDED
+
+
+_RECORDED = None
+
+
+def solve_port(name: str, iterates: dict):
+    """Solve case ``name`` with the port on the CPU; ``iterates`` holds the
+    final iterates of the cases solved so far (a warm case solves its source
+    first).  Returns (result, record) with the keys of the recorded file."""
+    import ipopt_torch
+    case = CASES[name]
+    it0 = None
+    if case["warm"] is not None and CASES[case["warm"]].get("record_iterate"):
+        it0 = [np.asarray(v) for v in recorded()[case["warm"]]["iterate"]]
+    elif case["warm"] is not None:
+        if case["warm"] not in iterates:
+            solve_port(case["warm"], iterates)
+        it0 = iterates[case["warm"]]
+    mus, trials = [], []
+
+    def cb(**k):
+        mus.append(float(k["mu"]))
+        trials.append(int(k["ls_trials"]))
+        return True
+
+    res = ipopt_torch.solve(build(case["problem"], "port"), device="cpu",
+                            print_level=0, it0=it0, intermediate_callback=cb,
+                            **case["opts"])
+    iterates[name] = res.iterate
+    c = res.counters
+    return res, dict(
+        status=int(res.status), iter_count=int(res.iter_count), obj=float(res.obj),
+        n_obj_evals=int(c.n_obj_evals), n_grad_evals=int(c.n_grad_evals),
+        n_hess_evals=int(c.n_hess_evals), n_factorizations=int(c.n_factorizations),
+        n_kkt_solves=int(c.n_kkt_solves), restoration_count=int(res.restoration_count),
+        mu=mus, ls_trials=trials)
