@@ -54,21 +54,37 @@ Phases, in order (any failure exits non-zero before the result line):
    level (level 1's time is K2's ``ms`` below); then
    Mittelmann's distributed control at N = 30 against the reference and at
    N = 100 (76 blocks of 408; restoration 41 blocks of 1,288): its first
-   iterations against the reference's, K2 on every input of the solve
-   against its plain version, the same status with the plain version in
-   K2's place, and the residual ratio in the step of iteration 4 with and
-   without ``linear_system_scaling="mc19"``; E4: LuksanVlcek 4 and 5 at
+   iterations against the reference's, K2 against its plain version on
+   every input of the solve whose launches are counted (its wall less the
+   checks' seconds is the solve's own), the same status with the plain
+   version in K2's place, and the residual ratio in the step of iteration
+   4 with and without ``linear_system_scaling="mc19"``; E4: LuksanVlcek 4 and 5 at
    n = 1e5 with ``mu_strategy="adaptive"`` on the banded backend (status 0,
    n = 2000 card against CPU, K2 on each solve's inputs against its plain
    version); and the banded restoration (an infeasible chain, card against
    CPU);
-10. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error,
+10. slice F, float64: F1 the scenario (block-arrow) backend at full width,
+   ``stochastic_qp(8192, 30)`` (scenario blocks (8192, 32, 32): K1's warp
+   variant, then the log-depth inverse and its Newton step), status 0, K1
+   twice per factorization (the blocks and the Schur root), S = 256 card
+   against CPU, K1 bit-equal to its plain version on every input of the
+   solve and timed on the scenario blocks; F2 the same at
+   ``stochastic_qp(1024, 126)`` (blocks of 128: K1's CTA variant, then the
+   substitution); F3 the arrow restoration (inconsistent scenario
+   equalities, S = 4 and 1024, card against CPU); F4
+   ``hessian_approximation="limited-memory"`` on the dense (the HS071
+   family), chained (``luksan_vlcek1(4096, 32)``), arrow (F1's problem) and
+   banded (``luksan_vlcek1_flat(1e5)``) backends, each at status 0 with
+   its launches counted, the smaller instances card against CPU;
+11. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error,
    time, the plain version's and the library call's time and the least time
-   the card could take, K2's numbers per path and its launch plans;
-11. the last line: ``{"ok": true, "device": {...}}``.
+   the card could take, both kernels' launches per path, K2's numbers per
+   path and its launch plans;
+12. the last line: ``{"ok": true, "device": {...}}``.
 
-It needs a CUDA device and the ``ipopt_torch`` package next to it; without
-either it fails.  It imports nothing of JAX.
+Each phase's start is printed with the seconds since the script started.
+It needs a CUDA device and the ``ipopt_torch`` package next to it;
+without either it fails.  It imports nothing of JAX.
 """
 import json
 import os
@@ -107,6 +123,14 @@ BANDED_STACKS = ((6250, 16), (8333, 24), (38, 408), (20, 1288), (25, 604))
 
 def log(msg):
     print(msg, flush=True)
+
+
+T0 = time.perf_counter()
+
+
+def phase(name):
+    """A phase's start, with the seconds since the script started."""
+    log(f"[{time.perf_counter() - T0:.1f} s] phase: {name}")
 
 
 def card_line():
@@ -668,7 +692,7 @@ def chained_path(dev, opts, card):
             (ne, 156, 156) for ne in (64, 32, 16, 8, 4, 2, 1, 1)]:
         raise SystemExit(f"chained path: captured {len(inputs)} K2 inputs of shapes "
                          f"{shapes}...")
-    return k2_launches, inputs
+    return k2_launches, inputs, wall / max(iters, 1) * 1e3
 
 
 # LuksanVlcek1 chained with 100 variables per group: KKT blocks v + 2 mk =
@@ -847,10 +871,12 @@ def banded_path(dev, opts, card):
     cold_s = time.perf_counter() - t0
     bl.block_ldlt.launches = 0
     k2.block_ldlt_inv.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = ipopt_torch.solve(cnlp, device=dev, **bopts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     k2_launches, k1_launches = k2.block_ldlt_inv.launches, bl.block_ldlt.launches
     status, iters, obj = int(res.status), int(res.iter_count), float(res.obj)
     n_fact, n_resto = int(res.counters.n_factorizations), int(res.restoration_count)
@@ -861,7 +887,8 @@ def banded_path(dev, opts, card):
         f"{info.resto.nb} blocks of {info.resto.b}): status {status}, {iters} "
         f"iterations, objective {obj!r} (reference {LVF_OBJ!r}, rel diff {rel:.2e}); "
         f"warm solve {wall:.3f} s ({wall / max(iters, 1) * 1e3:.1f} ms/iteration), cold "
-        f"solve {cold_s:.3f} s, set-up (canonicalize_sparse) {setup_s:.3f} s; K2 "
+        f"solve {cold_s:.3f} s, set-up (canonicalize_sparse) {setup_s:.3f} s, warm "
+        f"solve's peak device memory {peak_gib:.3f} GiB; K2 "
         f"launches {k2_launches}, K1 launches {k1_launches}, BCR factorizations {bcr} "
         f"(counters.n_factorizations {n_fact}), restorations {n_resto}; card {card}")
     checks = [
@@ -895,6 +922,7 @@ def banded_path(dev, opts, card):
     if len(inputs) != LVF_K2_PER_FACTORIZATION * LVF_FACTORIZATIONS:
         raise SystemExit(f"banded path: captured {len(inputs)} K2 inputs")
     return k2_launches, inputs, dict(wall_s=wall, cold_s=cold_s, setup_s=setup_s,
+                                     peak_gib=peak_gib,
                                      iterations=iters, factorizations=bcr)
 
 
@@ -948,8 +976,10 @@ def backward_error(A, X):
 
 
 class MittK2Check:
-    """K2 against its plain version on every input of a solve whose blocks
-    the unpivoted sweep cannot invert accurately (Mittelmann N = 100).
+    """K2 against its plain version on the inputs of a solve whose blocks
+    the unpivoted sweep cannot invert accurately (Mittelmann N = 100): every
+    input, timed in ``seconds`` so that a solve that runs the checks can
+    report its own wall without them.
 
     Per block: the finite pattern of Ainv and d equal to the plain
     version's, and either the forward rule of ``check_k2_on_path`` (|dAinv|
@@ -969,8 +999,19 @@ class MittK2Check:
 
     def __init__(self):
         self.rows = {}
+        self.seconds = 0.0
+        self.checked = 0
 
     def __call__(self, A, d_k, inv_k):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.checked += 1
+        self._check(A, d_k, inv_k)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+
+    def _check(self, A, d_k, inv_k):
         import torch
         from ipopt_torch.linalg import block_ldlt_inv as k2
         from ipopt_torch.linalg.block_tridiag import _block_inertia_counts
@@ -1058,13 +1099,12 @@ def mittelmann_path(dev, opts, card):
     backend: N = 30 against the reference's values; N = 100 without
     restoration against the reference's values and per-iteration trace;
     N = 100 at the default options (restoration on: K2's device-memory
-    variant at b = 1288), launch counts from 0, its outcome logged and held:
-    it entered restoration, K2 on every input of one more solve against
-    its plain version (``MittK2Check``), and the same status with K2's plain
-    version in the kernel's place.  The issue's gate, status 0 at N = 100,
-    is printed as met or not; it is not met today (status 10: the linear
-    solves lose their accuracy from iteration 4, PERF.md section 6).
-    Returns its numbers."""
+    variant at b = 1288), launch counts from 0, K2 on the inputs of that
+    solve against its plain version (``MittK2Check``), its outcome logged and
+    held: it entered restoration, and the same status with K2's plain
+    version in the kernel's place.  Status 0 at N = 100 is printed as met or
+    not; it is not met (status 10: the linear solves lose their accuracy
+    from iteration 4, ROADMAP Queue 3).  Returns its numbers."""
     import torch
     import ipopt_torch
     from ipopt_torch import modellib
@@ -1088,8 +1128,10 @@ def mittelmann_path(dev, opts, card):
     setup_s = time.perf_counter() - t0
     info = cnlp.chain
     rows, cb = _mitt_trace()
+    # iterations 0-3 are compared and iteration 4 printed: the solve stops
+    # there (max_iter=5) instead of running on to its status 10
     rnr = ipopt_torch.solve(cnlp, device=dev, resto_phase=False, intermediate_callback=cb,
-                            **bopts)
+                            **dict(bopts, max_iter=5))
     k = len(MITT100_NR_TRACE)
     t_p = np.array(rows[:k])
     trace_ok = (t_p.shape == MITT100_NR_TRACE.shape
@@ -1105,29 +1147,11 @@ def mittelmann_path(dev, opts, card):
     if not trace_ok:
         raise SystemExit("Mittelmann path: N = 100 differs from the reference's trace")
 
-    bl.block_ldlt.launches = 0
-    k2.block_ldlt_inv.launches = 0
-    t0 = time.perf_counter()
-    res = ipopt_torch.solve(cnlp, device=dev, **bopts)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    k2_launches, k1_launches = k2.block_ldlt_inv.launches, bl.block_ldlt.launches
-    got = (int(res.status), int(res.iter_count), int(res.counters.n_factorizations),
-           int(res.restoration_count))
-    obj = float(res.obj)
-    log(f"Mittelmann path: solve(mittelmann_dist_control({MITT_N}), banded-bcr) float64, "
-        f"n = {info.n}, N = {info.N} in {info.nb} blocks of {info.b} (restoration NLP: "
-        f"{info.resto.nb} blocks of {info.resto.b}): (status, iterations, "
-        f"factorizations, restorations) {got}, objective {obj!r}; solve {wall:.3f} s "
-        f"({wall / max(got[1], 1) * 1e3:.1f} ms/iteration), set-up "
-        f"{setup_s:.3f} s; K2 launches {k2_launches}, K1 launches {k1_launches}; "
-        f"card {card}")
-    if k2_launches == 0 or k1_launches != 0 or got[3] == 0:
-        raise SystemExit(f"Mittelmann path: K2 launches {k2_launches}, K1 {k1_launches}, "
-                         f"restorations {got[3]}")
-
-    # K2 on every input of one more solve (its restorations' 1288-wide blocks
-    # included), and the residual ratio of each of its linear solves
+    # one solve at the default options (restoration on), the launch counts
+    # from 0 around it, K2 held against its plain version on every input
+    # (its restorations' 1288-wide blocks included) and the residual ratio
+    # of each linear solve logged; its wall includes those checks, so the
+    # solve's own wall is that wall less the checks' seconds
     from ipopt_torch.algorithm import step as step_mod
     from ipopt_torch.linalg import block_tridiag
     check, events = MittK2Check(), []
@@ -1147,14 +1171,33 @@ def mittelmann_path(dev, opts, card):
         events.append(("it", iter_count))
         return True
 
+    bl.block_ldlt.launches = 0
+    k2.block_ldlt_inv.launches = 0
     block_tridiag.block_ldlt_inv, step_mod.solve_any = k2_checked, solve_logged
+    t0 = time.perf_counter()
     try:
-        res_c = ipopt_torch.solve(cnlp, device=dev, intermediate_callback=count_iterations,
-                                  **bopts)
+        res = ipopt_torch.solve(cnlp, device=dev, intermediate_callback=count_iterations,
+                                **bopts)
+        torch.cuda.synchronize()
     finally:
         block_tridiag.block_ldlt_inv, step_mod.solve_any = kernel, solve_any
-    got_c = (int(res_c.status), int(res_c.iter_count), int(res_c.restoration_count))
-    log(f"Mittelmann path, the checked solve: (status, iterations, restorations) {got_c}")
+    wall = time.perf_counter() - t0
+    solve_s = wall - check.seconds
+    k2_launches, k1_launches = k2.block_ldlt_inv.launches, bl.block_ldlt.launches
+    got = (int(res.status), int(res.iter_count), int(res.counters.n_factorizations),
+           int(res.restoration_count))
+    obj = float(res.obj)
+    log(f"Mittelmann path: solve(mittelmann_dist_control({MITT_N}), banded-bcr) float64, "
+        f"n = {info.n}, N = {info.N} in {info.nb} blocks of {info.b} (restoration NLP: "
+        f"{info.resto.nb} blocks of {info.resto.b}): (status, iterations, "
+        f"factorizations, restorations) {got}, objective {obj!r}; solve with K2 "
+        f"checked on every one of its {check.checked} inputs {wall:.3f} s, of it the "
+        f"checks {check.seconds:.3f} s and the solve {solve_s:.3f} s, "
+        f"set-up {setup_s:.3f} s; K2 launches "
+        f"{k2_launches}, K1 launches {k1_launches}; card {card}")
+    if k2_launches == 0 or k1_launches != 0 or got[3] == 0:
+        raise SystemExit(f"Mittelmann path: K2 launches {k2_launches}, K1 {k1_launches}, "
+                         f"restorations {got[3]}")
     k2_rows = check.report("Mittelmann")
     if not any(b == info.resto.b for b, _ in check.rows):
         raise SystemExit("Mittelmann path: K2 was not checked on the restoration's blocks")
@@ -1202,19 +1245,24 @@ def mittelmann_path(dev, opts, card):
 
     # the same solve with K2's plain version in the kernel's place
     block_tridiag.block_ldlt_inv = k2.block_ldlt_inv_plain
+    t0 = time.perf_counter()
     try:
         res_p = ipopt_torch.solve(cnlp, device=dev, **bopts)
     finally:
         block_tridiag.block_ldlt_inv = kernel
+    plain_s = time.perf_counter() - t0
     got_p = (int(res_p.status), int(res_p.iter_count), int(res_p.restoration_count))
     log(f"Mittelmann path: the same solve with K2's plain version on the card: "
-        f"(status, iterations, restorations) {got_p}, objective {float(res_p.obj)!r}")
+        f"(status, iterations, restorations) {got_p}, objective {float(res_p.obj)!r}; "
+        f"{plain_s:.1f} s")
     if got_p[0] != got[0]:
         raise SystemExit(f"Mittelmann path: status {got[0]} with K2, {got_p[0]} with "
                          f"its plain version")
     log(f"Mittelmann path: status 0 at N = {MITT_N} (the issue's gate): "
         f"{'met' if got[0] == 0 else 'NOT met'}")
-    return dict(wall_s=wall, setup_s=setup_s, status=got[0], iterations=got[1],
+    return dict(checked_wall_s=wall, checks_s=check.seconds, solve_s=solve_s,
+                plain_version_s=plain_s, k2_inputs_checked=check.checked,
+                setup_s=setup_s, status=got[0], iterations=got[1],
                 factorizations=got[2], restorations=got[3], k2_launches=k2_launches,
                 objective=obj, plain_version=dict(zip(("status", "iterations",
                                                        "restorations"), got_p)),
@@ -1595,6 +1643,370 @@ def banded_adaptive_path(dev, opts, card, name, n):
                                  blocks=[info.nb, info.b])
 
 
+# ---------------------------------------------------------------------------
+# Slice F: the scenario (block-arrow) backend, and limited-memory Hessians on
+# every backend.  All phases in float64.
+# ---------------------------------------------------------------------------
+# F1/F2: the two-stage stochastic QP of tests/test_scenario.py:11
+# (modellib.stochastic_qp) at S scenarios of ns variables, seed 0: scenario
+# blocks ns + 2 wide.  F1: S = 8192, ns = 30, blocks (8192, 32, 32) (K1's
+# warp variant, then the log-depth inverse and its Newton step), 245,762
+# variables.  F2: S = 1024, ns = 126, blocks (1024, 128, 128) (K1's CTA
+# variant, then the substitution).  The card is held against the CPU at
+# S = SQP_CPU_S: the Schur reduction sums over S on the card in another
+# order than on the CPU, so the full size is held to status 0.
+SQP_F1, SQP_F2 = (8192, 30), (1024, 126)
+SQP_CPU_S = 256
+# F4: the reference's values of hs071 with hessian_approximation=
+# "limited-memory", max_iter=300 (tests/torch_cases.py "hs071_lbfgs",
+# tools/torch_reference_values.py): status, iterations, objective.
+LBFGS = dict(hessian_approximation="limited-memory", max_iter=300)
+HS071_LBFGS_REF = (0, 10, 17.01401714521598)
+LBFGS_STRUCT = dict(LBFGS, tol=1e-6)      # tests/test_structured_combos.py:31-61
+LVF_LBFGS_SMALL = 2000
+# F4 dense: the lanes of the L-BFGS family that a relative 3e-15 in the SMW
+# matrix moves by one iteration on the CPU (tests/test_torch_lbfgs.py::
+# test_family_lanes_are_rounding_sensitive), allowed one iteration apart
+# from the CPU's solve; and the reference's (status, iterations, objective)
+# on them (tests/torch_cases.py "hs071_fam<lane>_lbfgs").
+FAMILY_LBFGS_SENSITIVE = {286: (0, 11, 16.79332419911344),
+                          287: (0, 11, 16.79258648783774),
+                          294: (0, 11, 16.787428780887613)}
+
+
+def scen_infeasible(S, ns=3):
+    """tests/test_arrow_resto.py:34-48 in torch: per scenario the rows
+    xs[0] = 1 and xs[0] = -1, so the problem is locally infeasible."""
+    from ipopt_torch import ScenarioNLP
+    import torch
+    return ScenarioNLP(
+        f_scen=lambda x0, xs, th: 0.5 * torch.sum(xs ** 2),
+        g_scen=lambda x0, xs, th: torch.stack([xs[0] - 1.0, xs[0] + 1.0]),
+        x0_init=np.zeros(1), xs_init=np.zeros((S, ns)),
+        g_L=np.zeros((S, 2)), g_U=np.zeros((S, 2)))
+
+
+def _card_vs_cpu(path, build, dev, kw, rtol=1e-9, status=0):
+    """Solve ``build()`` on the card and on the CPU; held: equal (status,
+    iterations, factorizations, restorations), the card's status equal to
+    ``status``, and the objectives to ``rtol`` (not held where ``rtol`` is
+    None: the objective of a locally infeasible end means nothing).
+    Returns the card's (status, iterations, factorizations, restorations)."""
+    import ipopt_torch
+    rs = [ipopt_torch.solve(build(), device=d, **kw) for d in (dev, "cpu")]
+    rows = [(int(r.status), int(r.iter_count), int(r.counters.n_factorizations),
+             int(r.restoration_count)) for r in rs]
+    rel = abs(float(rs[0].obj) - float(rs[1].obj)) / max(abs(float(rs[1].obj)), 1e-300)
+    log(f"{path}: card (status, iterations, factorizations, restorations) {rows[0]}, "
+        f"objective {float(rs[0].obj)!r}; CPU {rows[1]}, objective "
+        f"{float(rs[1].obj)!r} (rel diff {rel:.2e}, "
+        + (f"held to {rtol:g})" if rtol is not None else "not held)"))
+    if rows[0] != rows[1] or rows[0][0] != status or (rtol is not None and rel > rtol):
+        raise SystemExit(f"{path}: the card and the CPU disagree")
+    return rows[0]
+
+
+def check_k1_inputs(dev, inputs, shape, path, card):
+    """K1 on every input a solve gave it (captured by ``capture_k1_inputs``:
+    on the arrow path the scenario blocks and the Schur roots), bit-equal to
+    its plain version; timed on the inputs of ``shape``: device time per
+    launch (torch.profiler), the plain version's and torch.linalg.
+    ldl_factor_ex's (Bunch-Kaufman, another function: a yardstick) time per
+    call, and the bound."""
+    import torch
+    from ipopt_torch.linalg import block_ldlt as bl
+    from ipopt_torch.profile_main import device_us_per_launch
+    blocks = [A for A in inputs if tuple(A.shape) == shape]
+    if not blocks:
+        raise SystemExit(f"K1 on the {path} path: no {shape} input among "
+                         f"{sorted({tuple(A.shape) for A in inputs})}")
+    max_abs_err = 0.0
+    for A in inputs:
+        L_k, d_k = bl.block_ldlt(A)
+        L_p, d_p = bl.block_ldlt_plain(A)
+        if not (same_values(L_k, L_p) and same_values(d_k, d_p)):
+            raise SystemExit(f"K1 on the {path} path: an input of {tuple(A.shape)} where "
+                             f"the kernel differs from its plain version")
+        for x, y in ((L_k, L_p), (d_k, d_p)):
+            fin = torch.isfinite(x) & torch.isfinite(y)
+            max_abs_err = max(max_abs_err, float(torch.where(fin, x - y, 0.0).abs().max()))
+    us, n = device_us_per_launch(lambda: [bl.block_ldlt(A) for A in blocks], "ldlt_",
+                                 rounds=3)
+    A0 = blocks[0]
+    call_ms = time_cuda(lambda: bl.block_ldlt(A0), reps=20, warmup=2)
+    # the profiler's device time per launch where it traced the kernel, else
+    # CUDA events around back-to-back wrapper calls (one launch each)
+    source = "torch.profiler" if n else "CUDA events"
+    ms = us * 1e-3 if n else call_ms
+    plain_ms = time_cuda(lambda: bl.block_ldlt_plain(A0), reps=5, warmup=1)
+    # seconds per call at these shapes: one timed call (its handles exist
+    # since check_k1)
+    ldl_ms = time_cuda(lambda: torch.linalg.ldl_factor_ex(A0), reps=1, warmup=0)
+    bound_ms, bound_by, nbytes, ops = k1_bound(shape[0], shape[1], A0.dtype)
+    pl = bl.plan(shape[0], shape[1], A0.dtype)
+    log(f"K1 on the {path} path: {len(inputs)} inputs ({len(blocks)} of {shape}), "
+        f"each bit-equal to the plain version; plan {pl.variant}; "
+        f"{us:.2f} us device time per launch on the {shape} inputs (torch.profiler, {n} "
+        f"launches), {call_ms:.4f} ms per wrapper call (CUDA events); K1's ms "
+        f"{ms:.4f} ({source}); plain version {plain_ms:.4f} ms; "
+        f"torch.linalg.ldl_factor_ex {ldl_ms:.4f} ms; bound {bound_ms:.6f} ms "
+        f"({bound_by}: {nbytes} B, {ops} ops), {ms / bound_ms:.1f}x; card {card}")
+    return dict(shape=list(shape), inputs=len(inputs), variant=pl.variant,
+                ms=ms, ms_source=source, call_ms=call_ms, plain_ms=plain_ms,
+                library_ms=ldl_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=max_abs_err)
+
+
+def _timed_solves(build_or_nlp, dev, kw):
+    """Cold solve, then the warm solve with every kernel count set to 0
+    just before and read just after.  Returns (warm result, wall, cold wall,
+    K1 launches, K2 launches, the warm solve's peak device memory in GiB
+    (torch.cuda.max_memory_allocated))."""
+    import torch
+    import ipopt_torch
+    from ipopt_torch.linalg import block_ldlt as bl
+    from ipopt_torch.linalg import block_ldlt_inv as k2
+    solve = (ipopt_torch.solve_batched if isinstance(build_or_nlp, list)
+             or getattr(build_or_nlp, "batch", 1) > 1 else ipopt_torch.solve)
+    t0 = time.perf_counter()
+    cold = solve(build_or_nlp, device=dev, **kw)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    bl.block_ldlt.launches = 0
+    k2.block_ldlt_inv.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = solve(build_or_nlp, device=dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if not bool((cold.iter_count == res.iter_count).all()):
+        raise SystemExit("the cold and the warm solves differ")
+    return (res, wall, cold_s, bl.block_ldlt.launches, k2.block_ldlt_inv.launches,
+            peak_gib)
+
+
+def arrow_path(dev, opts, card, S, ns, tag):
+    """F1/F2: ``stochastic_qp(S, ns)`` on the arrow backend: set-up, cold,
+    warm with the counts from 0 (status 0, K1 twice per factorization: the
+    scenario blocks and the Schur root, K2 never); the card against the CPU
+    at S = SQP_CPU_S; K1 on every input of one more warm solve, bit-equal to
+    its plain version, timed on the scenario blocks."""
+    import torch
+    import ipopt_torch
+    from ipopt_torch import modellib
+    from ipopt_torch.profile_main import capture_k1_inputs
+    t0 = time.perf_counter()
+    cnlp = ipopt_torch.canonicalize_scenario(modellib.stochastic_qp(S, ns),
+                                             ipopt_torch.Options(**opts), device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    ar = cnlp.chain
+    res, wall, cold_s, k1_n, k2_n, peak = _timed_solves(cnlp, dev, opts)
+    got = (int(res.status), int(res.iter_count), int(res.counters.n_factorizations),
+           int(res.restoration_count))
+    log(f"{tag} arrow: solve(stochastic_qp({S}, {ns})) float64, n = {cnlp.n}, "
+        f"{ar.S} scenario blocks of {ar.bs}: (status, iterations, factorizations, "
+        f"restorations) {got}, objective {float(res.obj)!r}; set-up {setup_s:.3f} s, "
+        f"warm solve {wall:.3f} s ({wall / max(got[1], 1) * 1e3:.1f} ms/iteration), "
+        f"cold {cold_s:.3f} s, peak device memory {peak:.3f} GiB; K1 launches {k1_n} "
+        f"({k1_n / max(got[2], 1):g} per "
+        f"factorization), K2 launches {k2_n}; card {card}")
+    if got[0] != 0 or k2_n or k1_n != 2 * got[2]:
+        raise SystemExit(f"{tag}: status {got[0]}, K1 launches {k1_n} (want 2 x "
+                         f"{got[2]}), K2 launches {k2_n}")
+    _card_vs_cpu(f"{tag}, stochastic_qp({SQP_CPU_S}, {ns})",
+                 lambda: modellib.stochastic_qp(SQP_CPU_S, ns), dev, opts)
+    inputs = capture_k1_inputs(lambda: ipopt_torch.solve(cnlp, device=dev, **opts))
+    n_blocks = sum(tuple(A.shape) == (S, ar.bs, ar.bs) for A in inputs)
+    if n_blocks != got[2]:
+        raise SystemExit(f"{tag}: {n_blocks} scenario-block inputs for {got[2]} "
+                         f"factorizations")
+    k1 = check_k1_inputs(dev, inputs, (S, ar.bs, ar.bs), f"{tag} arrow", card)
+    del inputs
+    return dict(S=S, ns=ns, block=ar.bs, n=cnlp.n, status=got[0], iterations=got[1],
+                factorizations=got[2], setup_s=setup_s, wall_s=wall, cold_s=cold_s,
+                peak_gib=peak,
+                ms_per_iteration=wall / max(got[1], 1) * 1e3, k1_launches=k1_n, k1=k1)
+
+
+def arrow_restoration_path(dev, card):
+    """F3: the inconsistent scenario equalities (tests/test_arrow_resto.py:
+    34-48) at their size (S = 4) and at S = 1024: the card with the CPU's
+    status and restoration count (local infeasibility after one
+    restoration); the counts from 0 around the S = 1024 card solve."""
+    from ipopt_torch.linalg import block_ldlt as bl
+    from ipopt_torch.linalg import block_ldlt_inv as k2
+    kw = dict(tol=1e-8, print_level=0)
+    out = {}
+    for S in (4, 1024):
+        bl.block_ldlt.launches = 0
+        k2.block_ldlt_inv.launches = 0
+        got = _card_vs_cpu(f"F3 arrow restoration, S = {S}", lambda: scen_infeasible(S),
+                           dev, kw, rtol=None, status=6)
+        # the CPU solve launches nothing: these are the card solve's
+        out[S] = dict(status=got[0], iterations=got[1], restorations=got[3],
+                      k1_launches=bl.block_ldlt.launches)
+        if got[3] == 0 or k2.block_ldlt_inv.launches or out[S]["k1_launches"] == 0:
+            raise SystemExit(f"F3: restorations {got[3]}, K1 {out[S]['k1_launches']}, "
+                             f"K2 {k2.block_ldlt_inv.launches}")
+    log(f"F3 arrow restoration: {out}; card {card}")
+    return out
+
+
+def lbfgs_paths(dev, card, nlp_b, family, exact_ms):
+    """F4: hessian_approximation="limited-memory" on every backend, each
+    cold then warm with the counts from 0 around the warm solve, status 0:
+    chained (luksan_vlcek1(4096, 32); n = 256 card = CPU), arrow (F1's
+    problem; S = 256 card = CPU), banded (luksan_vlcek1_flat, n = 2000 card
+    = CPU, n = 1e5 timed) and dense (the HS071 family, B = 512: every lane
+    at the CPU's iterations, except that a lane of FAMILY_LBFGS_SENSITIVE
+    may end one apart with the CPU's objective to 1e-9; those lanes within
+    one iteration of the reference's and lane 0 equal to it).  ``exact_ms``
+    holds the exact-Hessian ms per iteration of the same backends and the
+    exact banded solve's peak device memory, printed beside."""
+    import ipopt_torch
+    from ipopt_torch import modellib
+    from ipopt_torch.sparse import canonicalize_sparse
+    out = {}
+    kw = dict(LBFGS_STRUCT, print_level=0)
+    cnlp = ipopt_torch.canonicalize_chained(modellib.luksan_vlcek1(LV1_N, LV1_V),
+                                            ipopt_torch.Options(**kw), device=dev)
+    res, wall, cold_s, k1_n, k2_n, peak = _timed_solves(cnlp, dev, kw)
+    got = (int(res.status), int(res.iter_count), int(res.counters.n_factorizations))
+    bcr = res.batched_factorizations
+    log(f"F4 L-BFGS chained: luksan_vlcek1({LV1_N}, {LV1_V}) tol 1e-6: (status, "
+        f"iterations, factorizations) {got}, objective {float(res.obj)!r}; warm "
+        f"{wall:.3f} s ({wall / max(got[1], 1) * 1e3:.1f} ms/iteration; exact "
+        f"{exact_ms['chained']:.1f}), cold {cold_s:.3f} s, peak device memory "
+        f"{peak:.3f} GiB; K2 launches {k2_n} ({bcr} BCR "
+        f"factorizations), K1 launches {k1_n}; card {card}")
+    if got[0] != 0 or k2_n != LV1_K2_PER_FACTORIZATION * bcr or k1_n:
+        raise SystemExit(f"F4 chained: status {got[0]}, K2 {k2_n} for {bcr}, K1 {k1_n}")
+    _card_vs_cpu(f"F4 L-BFGS chained, luksan_vlcek1(256, {LV1_V})",
+                 lambda: modellib.luksan_vlcek1(256, LV1_V), dev, kw)
+    out["chained_lv1_4096_32"] = dict(status=got[0], iterations=got[1], factorizations=got[2],
+                                      wall_s=wall, cold_s=cold_s, k2_launches=k2_n,
+                                      k1_launches=k1_n, peak_gib=peak,
+                                      ms_per_iteration=wall / max(got[1], 1) * 1e3)
+
+    S, ns = SQP_F1
+    cnlp = ipopt_torch.canonicalize_scenario(modellib.stochastic_qp(S, ns),
+                                             ipopt_torch.Options(**kw), device=dev)
+    res, wall, cold_s, k1_n, k2_n, peak = _timed_solves(cnlp, dev, kw)
+    got = (int(res.status), int(res.iter_count), int(res.counters.n_factorizations))
+    log(f"F4 L-BFGS arrow: stochastic_qp({S}, {ns}) tol 1e-6: (status, iterations, "
+        f"factorizations) {got}, objective {float(res.obj)!r}; warm {wall:.3f} s "
+        f"({wall / max(got[1], 1) * 1e3:.1f} ms/iteration; exact {exact_ms['arrow']:.1f}), "
+        f"cold {cold_s:.3f} s, peak device memory {peak:.3f} GiB; K1 launches {k1_n}, "
+        f"K2 launches {k2_n}; card {card}")
+    if got[0] != 0 or k1_n != 2 * got[2] or k2_n:
+        raise SystemExit(f"F4 arrow: status {got[0]}, K1 {k1_n} for {got[2]}, K2 {k2_n}")
+    _card_vs_cpu(f"F4 L-BFGS arrow, stochastic_qp({SQP_CPU_S}, {ns})",
+                 lambda: modellib.stochastic_qp(SQP_CPU_S, ns), dev, kw)
+    out["arrow_sqp_8192_30"] = dict(status=got[0], iterations=got[1], factorizations=got[2],
+                                    wall_s=wall, cold_s=cold_s, k1_launches=k1_n,
+                                    peak_gib=peak,
+                                    ms_per_iteration=wall / max(got[1], 1) * 1e3)
+
+    kw = dict(LBFGS_STRUCT, print_level=0, **BANDED)
+    _card_vs_cpu(f"F4 L-BFGS banded, luksan_vlcek1_flat({LVF_LBFGS_SMALL})",
+                 lambda: modellib.luksan_vlcek1_flat(LVF_LBFGS_SMALL), dev, kw)
+    t0 = time.perf_counter()
+    cnlp = canonicalize_sparse(modellib.luksan_vlcek1_flat(LVF_N),
+                               ipopt_torch.Options(**kw), device=dev)
+    setup_s = time.perf_counter() - t0
+    res, wall, cold_s, k1_n, k2_n, peak = _timed_solves(cnlp, dev, kw)
+    got = (int(res.status), int(res.iter_count), int(res.counters.n_factorizations))
+    bcr = res.batched_factorizations
+    log(f"F4 L-BFGS banded: luksan_vlcek1_flat({LVF_N}) tol 1e-6, max_iter "
+        f"{LBFGS['max_iter']}: (status, iterations, factorizations) {got}, objective "
+        f"{float(res.obj)!r}; set-up {setup_s:.3f} s, warm {wall:.3f} s "
+        f"({wall / max(got[1], 1) * 1e3:.1f} ms/iteration; exact {exact_ms['banded']:.1f}), "
+        f"cold {cold_s:.3f} s, peak device memory {peak:.3f} GiB (exact Hessian "
+        f"{exact_ms['banded_peak_gib']:.3f}); K2 launches {k2_n} ({bcr} BCR factorizations), K1 "
+        f"launches {k1_n}; card {card}")
+    if got[0] != 0 or k2_n != LVF_K2_PER_FACTORIZATION * bcr or k1_n:
+        raise SystemExit(f"F4 banded: status {got[0]}, K2 {k2_n} for {bcr}, K1 {k1_n}")
+    out["banded_lv1_flat_1e5"] = dict(status=got[0], iterations=got[1], factorizations=got[2],
+                                      setup_s=setup_s, wall_s=wall, cold_s=cold_s,
+                                      peak_gib=peak,
+                                      k2_launches=k2_n,
+                                      ms_per_iteration=wall / max(got[1], 1) * 1e3)
+    kw = dict(LBFGS, print_level=0)
+    res, wall, cold_s, k1_n, k2_n, peak = _timed_solves(nlp_b, dev, kw)
+    iters = res.iter_count.cpu().numpy()
+    status = res.status.cpu().numpy()
+    n_ok = int((status == 0).sum())
+    outer = int(iters.max())
+    cpu = ipopt_torch.solve_batched(family, device="cpu", **kw)
+    differ = np.nonzero(cpu.iter_count.numpy() != iters)[0]
+    same = FAMILY_B - len(differ)
+    for lane in differ[:10].tolist():
+        log(f"F4 L-BFGS dense, lane {lane}: card (status, iterations, objective) "
+            f"({int(status[lane])}, {int(iters[lane])}, {float(res.obj[lane])!r}), CPU "
+            f"({int(cpu.status[lane])}, {int(cpu.iter_count[lane])}, "
+            f"{float(cpu.obj[lane])!r})")
+    lane0 = (int(status[0]), int(iters[0]), float(res.obj[0]))
+    rel0 = abs(lane0[2] - HS071_LBFGS_REF[2]) / HS071_LBFGS_REF[2]
+    from ipopt_torch.profile_main import capture_k1_inputs
+    inputs = capture_k1_inputs(lambda: ipopt_torch.solve_batched(nlp_b, device=dev, **kw))
+    m = nlp_b.me + nlp_b.mi
+    k1 = check_k1_inputs(dev, inputs, (FAMILY_B, m, m), "F4 L-BFGS dense", card)
+    out["dense_hs071_512"] = dict(ok=n_ok, wall_s=wall, cold_s=cold_s, peak_gib=peak,
+                                  ms_per_iteration=wall / outer * 1e3, max_iterations=outer,
+                                  k1_launches=k1_n, k2_launches=k2_n,
+                                  batched_factorizations=res.batched_factorizations,
+                                  lanes_apart=differ.tolist(), k1=k1)
+    log(f"F4 L-BFGS dense: solve_batched B={FAMILY_B}: {n_ok}/{FAMILY_B} status 0, "
+        f"iterations median {statistics.median(iters.tolist())} max {outer}, warm "
+        f"{wall:.3f} s ({wall / outer * 1e3:.1f} ms per outer iteration; exact "
+        f"{exact_ms['dense']:.1f}), cold {cold_s:.3f} s; K1 launches {k1_n} (batched "
+        f"factorizations {res.batched_factorizations}), K2 {k2_n}; lanes with the CPU's "
+        f"iterations {same}/{FAMILY_B}; lane 0 {lane0}, reference {HS071_LBFGS_REF} "
+        f"(rel diff {rel0:.2e}); card {card}")
+    # a lane whose iterations differ from the CPU's: one of the lanes shown
+    # to move with a few ulps, by one iteration, with the CPU's objective to
+    # 1e-9; those lanes within one iteration of the reference's
+    obj_cpu = cpu.obj.numpy()
+    apart_ok = all(k in FAMILY_LBFGS_SENSITIVE
+                   and abs(int(iters[k]) - int(cpu.iter_count[k])) == 1
+                   and abs(float(res.obj[k]) - obj_cpu[k]) <= 1e-9 * abs(obj_cpu[k])
+                   for k in differ.tolist())
+    ref_ok = all(int(status[k]) == st and abs(int(iters[k]) - it) <= 1
+                 and abs(float(res.obj[k]) - obj) <= 1e-9 * abs(obj)
+                 for k, (st, it, obj) in FAMILY_LBFGS_SENSITIVE.items())
+    rel_all = float(np.max(np.abs(res.obj.cpu().numpy() - obj_cpu) / np.abs(obj_cpu)))
+    log(f"F4 L-BFGS dense: every lane's objective against the CPU's: max rel diff "
+        f"{rel_all:.2e}; lanes apart {differ.tolist()} (allowed: "
+        f"{sorted(FAMILY_LBFGS_SENSITIVE)}, one iteration each, objective to 1e-9: "
+        f"{apart_ok}); lanes {sorted(FAMILY_LBFGS_SENSITIVE)} on the card "
+        + ", ".join(f"({int(status[k])}, {int(iters[k])}, {float(res.obj[k])!r})"
+                    for k in sorted(FAMILY_LBFGS_SENSITIVE))
+        + f", the reference's {[FAMILY_LBFGS_SENSITIVE[k] for k in sorted(FAMILY_LBFGS_SENSITIVE)]}"
+        f" (within one iteration, objective to 1e-9: {ref_ok})")
+    if (n_ok != FAMILY_B or not apart_ok or not ref_ok
+            or lane0[:2] != HS071_LBFGS_REF[:2] or rel0 > 1e-9
+            or k1_n != res.batched_factorizations or k2_n):
+        raise SystemExit("F4 dense: the L-BFGS family solve failed its checks")
+
+    return out
+
+
+def slice_f_phases(dev, opts, card, nlp_b, family, exact_ms):
+    """F1-F4; returns their numbers for the kernels line."""
+    phase("F1 arrow, stochastic_qp(8192, 30)")
+    f1 = arrow_path(dev, opts, card, *SQP_F1, "F1")
+    exact_ms["arrow"] = f1["ms_per_iteration"]
+    phase("F2 arrow, stochastic_qp(1024, 126)")
+    f2 = arrow_path(dev, opts, card, *SQP_F2, "F2")
+    phase("F3 arrow restoration")
+    f3 = arrow_restoration_path(dev, card)
+    phase("F4 L-BFGS on every backend")
+    f4 = lbfgs_paths(dev, card, nlp_b, family, exact_ms)
+    return dict(f1=f1, f2=f2, f3=f3, f4=f4)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1636,11 +2048,6 @@ def main():
     if counts["DMMA"] == 0:
         raise SystemExit("K2 has no DMMA instruction")
 
-    # 3. kernels against their plain versions
-    k1_stats = check_k1(dev, card)
-    k2_stats = check_k2(dev)
-
-    # 4. the main path: canonicalize + stack on the host (set-up), then solve
     opts = dict(tol=1e-8, acceptable_tol=1e-6, acceptable_iter=10, print_level=0)
     family = [modellib.hs071_family(0.005 * i) for i in range(FAMILY_B)]
     t0 = time.perf_counter()
@@ -1648,6 +2055,14 @@ def main():
                                        device=dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+
+    # 3. kernels against their plain versions
+    phase("K1 and K2 against their plain versions")
+    k1_stats = check_k1(dev, card)
+    k2_stats = check_k2(dev)
+
+    # 4. the main path: canonicalize + stack on the host (set-up), then solve
+    phase("HS071 family (main path)")
     t0 = time.perf_counter()
     cold = ipopt_torch.solve_batched(nlp_b, device=dev, **opts)
     torch.cuda.synchronize()
@@ -1701,6 +2116,7 @@ def main():
         + f"; card {card}")
 
     # 5. one solve on the card
+    phase("solve(hs071), the dense LuksanVlcek1")
     r1 = ipopt_torch.solve(modellib.hs071(), device=dev, print_level=0)
     log(f"solve(hs071): status {int(r1.status)}, {int(r1.iter_count)} iterations, "
         f"f* {float(r1.obj)!r}")
@@ -1711,7 +2127,8 @@ def main():
     dense_path(dev, opts, card)
 
     # 7. the chained path, and at 496-wide blocks
-    k2_chained_launches, k2_inputs = chained_path(dev, opts, card)
+    phase("chained path")
+    k2_chained_launches, k2_inputs, chained_ms = chained_path(dev, opts, card)
     k2_chained = check_k2_on_path(dev, k2_inputs, LV1_K2_PER_FACTORIZATION,
                                   "chained", card)
     del k2_inputs
@@ -1721,6 +2138,7 @@ def main():
     paths["e2_chained_lv1_4096_32_adaptive"] = e2_launches
 
     # 8. the chained restoration at 204- and 504-wide blocks
+    phase("chained restoration, E3")
     for v in HARD_CHAIN_VS:
         paths[f"hard_chain_{v}"] = restoration_path(dev, card, v)
 
@@ -1729,12 +2147,15 @@ def main():
     paths["e3_mittelmann_bndry_10_cold_warm_cold"] = e3_launches
 
     # 9. the banded path, Mittelmann, E4, the banded restoration
+    phase("banded path")
     k2_launches, k2_inputs, banded = banded_path(dev, opts, card)
     k2_banded = check_k2_on_path(dev, k2_inputs, LVF_K2_PER_FACTORIZATION, "banded",
                                  card)
     del k2_inputs
     paths["banded_lv1_flat_1e5"] = k2_launches
+    phase("Mittelmann")
     mitt = mittelmann_path(dev, opts, card)
+    phase("E4 and the banded restoration")
     paths["mittelmann_100"] = mitt["k2_launches"]
     e4 = {}
     for name, n in BANDED_E4:
@@ -1743,7 +2164,23 @@ def main():
         paths[f"e4_banded_{name}_1e5_adaptive"] = e4_launches
     banded_restoration_path(dev, card)
 
+    # F1-F4: the arrow backend and limited-memory Hessians
+    exact_ms = dict(dense=wall / int(iters.max()) * 1e3, chained=chained_ms,
+                    banded=banded["wall_s"] / max(banded["iterations"], 1) * 1e3,
+                    banded_peak_gib=banded["peak_gib"])
+    f = slice_f_phases(dev, opts, card, nlp_b, family, exact_ms)
+    for tag in ("f1", "f2"):
+        paths_k1 = f"{tag}_arrow_sqp_{f[tag]['S']}_{f[tag]['ns']}"
+        f.setdefault("k1_launches_per_path", {})[paths_k1] = f[tag]["k1_launches"]
+    f["k1_launches_per_path"].update(
+        f3_arrow_restoration_1024=f["f3"][1024]["k1_launches"],
+        f4_lbfgs_dense_hs071_512=f["f4"]["dense_hs071_512"]["k1_launches"],
+        f4_lbfgs_arrow_sqp_8192_30=f["f4"]["arrow_sqp_8192_30"]["k1_launches"])
+    paths.update(f4_lbfgs_chained_lv1_4096_32=f["f4"]["chained_lv1_4096_32"]["k2_launches"],
+                 f4_lbfgs_banded_lv1_flat_1e5=f["f4"]["banded_lv1_flat_1e5"]["k2_launches"])
+
     # 10. kernels line, 11. result line
+    phase("kernels line")
     k2_entry = dict(k2_banded)
     k2_entry.update(
         banded=banded, chained=dict(k2_chained, launches=k2_chained_launches),
@@ -1755,8 +2192,10 @@ def main():
     k1_entry = dict(k1_stats)
     k1_entry["library_ms"] = k1_entry.pop("ldl_factor_ms")
     k1_entry["launches_per_path"] = {"hs071_512": launches, **{
-        f"e1_hs071_512_{m}": v["k1_launches"] for m, v in e1.items()}}
+        f"e1_hs071_512_{m}": v["k1_launches"] for m, v in e1.items()},
+        **f.pop("k1_launches_per_path")}
     k1_entry["slice_e"] = e1
+    k1_entry["slice_f"] = f
     print(json.dumps({"kernels": [{
         "name": "block_ldlt", "route": "cuda",
         "source": "ipopt_torch/csrc/block_ldlt.cu",

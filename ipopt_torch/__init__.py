@@ -10,6 +10,11 @@ block cyclic reduction whose block inverses are the hand-written kernel
 ``linear_solver="banded-bcr"`` runs on the general-sparsity backend
 (``ipopt_torch.sparse``): its declared or detected sparsity pattern is
 reordered by reverse Cuthill-McKee into the same block-tridiagonal form.
+Scenario problems (``ScenarioNLP``, two-stage stochastic programs) run on a
+block-arrow backend: K1 factors the scenario blocks, a Schur complement
+couples them.  ``hessian_approximation="limited-memory"`` (BFGS or SR1)
+works on every backend, by Sherman-Morrison-Woodbury around the backend's
+own factorization.
 The entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 
@@ -23,6 +28,8 @@ Quick start::
     rs = solve(modellib.luksan_vlcek1_flat(100_000),    # banded, on the card
                linear_solver="banded-bcr")
     ra = solve(modellib.hs071(), mu_strategy="adaptive")  # adaptive mu
+    rl = solve(modellib.hs071(), hessian_approximation="limited-memory")
+    rz = solve(ScenarioNLP(...))                          # block-arrow
     rw = solve(modellib.hs071(), it0=res.iterate,         # a warm start
                warm_start_init_point=True, mu_init=1e-6)
 """
@@ -30,6 +37,7 @@ Quick start::
 from .types import Iterate, SolverReturn, ApplicationReturnStatus
 from .problem import NLP, CanonicalNLP, canonicalize
 from .chained import ChainedNLP, canonicalize_chained
+from .parallel.scenario import ScenarioNLP, canonicalize_scenario
 from .options import Options, print_options_documentation, parse_options_file
 from .algorithm.solver import SolveResult, UnsupportedOptionError, solve
 from .batch import solve_batched, stack_problems
@@ -42,5 +50,5 @@ __all__ = [
     "Iterate", "SolverReturn", "ApplicationReturnStatus",
     "UnsupportedOptionError", "print_options_documentation",
     "parse_options_file", "solve_batched", "stack_problems", "modellib",
-    "ChainedNLP", "canonicalize_chained",
+    "ChainedNLP", "canonicalize_chained", "ScenarioNLP", "canonicalize_scenario",
 ]

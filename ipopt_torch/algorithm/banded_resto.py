@@ -14,14 +14,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..types import Iterate, SolverReturn, col, max_init, tree_put, tree_take
+from ..types import Iterate, col, max_init
 from ..problem import CanonicalNLP, CanonicalStructure
 from ..options import Options
 from ..sparse import BandedInfo, _row_scale
-from .. import kkt
-from ..kkt import evaluate, slacks, barrier_obj
-from .linesearch import FilterState, filter_acceptable, filter_init
+from .linesearch import FilterState
 from .restoration import RestoResult, _solve_quadratic_pn
+from .chained_resto import run_structured_restoration
 
 
 def build_resto_banded(orig: CanonicalNLP, opts: Options) -> CanonicalNLP:
@@ -80,14 +79,9 @@ def perform_restoration_banded(orig: CanonicalNLP, opts: Options,
     """Run the nested banded restoration IPM for every lane of ``orig`` (all
     of which entered restoration); ``ipm_step_fn(nlp, opts, state)`` is the
     solver's step without a restoration fallback."""
-    from .solver import IPMState, counters_init, robust_state_init
-
     s = orig.struct
     n, m = orig.chain.n, s.m
-    B, dtype, dev = orig.batch, it.x.dtype, it.x.device
-    izero = torch.zeros((B,), dtype=torch.int64, device=dev)
-    zero = torch.zeros((B,), dtype=dtype, device=dev)
-    inf = torch.full((B,), float("inf"), dtype=dtype, device=dev)
+    B, dev = orig.batch, it.x.device
 
     c_val = ev.c
     dms_val = ev.d - it.s
@@ -117,100 +111,6 @@ def perform_restoration_banded(orig: CanonicalNLP, opts: Options,
         z_U=torch.cat([torch.clamp(it.z_U, max=rho), torch.zeros_like(z_pn)], -1),
         v_L=torch.clamp(it.v_L, max=rho), v_U=torch.clamp(it.v_U, max=rho))
 
-    ev_r = evaluate(resto, it_r.x)
-    theta0_r = ev_r.c.abs().sum(-1) + (ev_r.d - it_r.s).abs().sum(-1)
-    st_r = IPMState(
-        it=it_r, mu=resto_mu, tau=torch.clamp(1.0 - resto_mu, min=opts.tau_min),
-        iter_count=izero, delta_w_last=zero,
-        fs=filter_init(B, opts.max_filter_size, dtype, dev),
-        theta_min=opts.theta_min_fact * torch.clamp(theta0_r, min=1.0),
-        theta_max=opts.theta_max_fact * torch.clamp(theta0_r, min=1.0),
-        status=torch.full((B,), int(SolverReturn.CONTINUE), dtype=torch.int64,
-                          device=dev),
-        acceptable_count=izero, last_alpha_pr=zero, last_alpha_du=zero,
-        last_ls_count=izero, last_delta_x=zero, last_step_norm=zero,
-        restoration_count=izero, tiny_step_count=izero,
-        counters=counters_init(B, dev),
-        wd_active=torch.zeros((B,), dtype=torch.bool, device=dev),
-        wd_trials=izero, wd_shortened_count=izero, wd_ref=it_r,
-        wd_ref_theta=inf, wd_ref_phi=inf, soft_resto_count=izero, ev=ev_r,
-        **robust_state_init(resto_opts, it_r))
-
-    inf_pr_req = torch.clamp(opts.required_infeasibility_reduction * theta_entry_inf,
-                             min=min(opts.tol, opts.constr_viol_tol))
-
-    def orig_progress(s_r):
-        """The exit test (RestoConvergenceCheck + TestOrigProgress) on the
-        original problem at the resto iterate."""
-        x = s_r.it.x[:, :n]
-        it_o = it._replace(x=x, s=s_r.it.s)
-        f_o = orig.eval_f(x)
-        c_o, d_o = orig.eval_cd(x)
-        inf_pr = torch.maximum(max_init(c_o.abs(), 0.0),
-                               max_init((d_o - s_r.it.s).abs(), 0.0))
-        theta_o = c_o.abs().sum(-1) + (d_o - s_r.it.s).abs().sum(-1)
-        phi_o = barrier_obj(orig, it_o, f_o, outer_mu, opts.kappa_d)
-        curr_ok = ((theta_o <= (1.0 - opts.gamma_theta) * theta_outer)
-                   | (phi_o <= phi_outer - opts.gamma_phi * theta_outer))
-        return (inf_pr <= inf_pr_req) & filter_acceptable(fs, theta_o, phi_o) & curr_ok
-
-    max_resto = min(opts.max_iter, opts.max_resto_iter)
-    while True:
-        done_prog = (st_r.iter_count != 0) & orig_progress(st_r)
-        cont = ((st_r.status == int(SolverReturn.CONTINUE)) & ~done_prog
-                & (st_r.iter_count < max_resto))
-        if not bool(cont.any()):
-            break
-        if bool(cont.all()):
-            st_r = ipm_step_fn(resto, resto_opts, st_r)
-        else:
-            idx = cont.nonzero().squeeze(-1)
-            st_r = tree_put(st_r, idx, ipm_step_fn(resto.take(idx), resto_opts,
-                                                   tree_take(st_r, idx)))
-    final = st_r
-
-    success = orig_progress(final)
-    resto_converged = ((final.status == int(SolverReturn.SUCCESS))
-                       | (final.status == int(SolverReturn.STOP_AT_ACCEPTABLE_POINT)))
-    locally_infeasible = ~success & resto_converged
-    failed = ~success & ~resto_converged
-
-    # ---- return to the main algorithm -----------------------------------
-    x_new = final.it.x[:, :n]
-    s_new = final.it.s
-    it_new = it._replace(x=x_new, s=s_new)
-    sl_old = slacks(orig, it)
-    sl_new = slacks(orig, it_new)
-    mu_c = col(outer_mu)
-
-    def dz_of(z, slo, sln, has):
-        dz = (mu_c + z * (slo - sln)) / slo - z
-        return torch.where(has, dz, torch.zeros_like(dz))
-
-    dz_L = dz_of(it.z_L, sl_old[0], sl_new[0], orig.has_xL)
-    dz_U = dz_of(it.z_U, sl_old[1], sl_new[1], orig.has_xU)
-    dv_L = dz_of(it.v_L, sl_old[2], sl_new[2], orig.has_dL)
-    dv_U = dz_of(it.v_U, sl_old[3], sl_new[3], orig.has_dU)
-    step = Iterate(x=torch.zeros_like(x_new), s=torch.zeros_like(s_new),
-                   y_c=torch.zeros_like(it.y_c), y_d=torch.zeros_like(it.y_d),
-                   z_L=dz_L, z_U=dz_U, v_L=dv_L, v_U=dv_U)
-    _, alpha_dual = kkt.fraction_to_boundary(
-        orig, it, step, torch.clamp(1.0 - outer_mu, min=opts.tau_min))
-    ad = col(alpha_dual)
-    z_L, z_U = it.z_L + ad * dz_L, it.z_U + ad * dz_U
-    v_L, v_U = it.v_L + ad * dv_L, it.v_U + ad * dv_U
-    zmax = torch.maximum(
-        torch.maximum(max_init(z_L.abs(), 0.0), max_init(z_U.abs(), 0.0)),
-        torch.maximum(max_init(v_L.abs(), 0.0), max_init(v_U.abs(), 0.0)))
-    reset = (zmax > opts.bound_mult_reset_threshold)[:, None]
-
-    def one_where(has, val):
-        return torch.where(reset, has.to(val.dtype), val)
-
-    it_out = Iterate(x=x_new, s=s_new,
-                     y_c=torch.zeros_like(it.y_c), y_d=torch.zeros_like(it.y_d),
-                     z_L=one_where(orig.has_xL, z_L), z_U=one_where(orig.has_xU, z_U),
-                     v_L=one_where(orig.has_dL, v_L), v_U=one_where(orig.has_dU, v_U))
-    return RestoResult(it=it_out, success=success,
-                       locally_infeasible=locally_infeasible, failed=failed,
-                       resto_iters=final.iter_count)
+    return run_structured_restoration(
+        orig, opts, resto_opts, it, outer_mu, fs, theta_outer, phi_outer,
+        ipm_step_fn, resto, it_r, theta_entry_inf, resto_mu, lambda x_r: x_r[:, :n])

@@ -98,15 +98,10 @@ def perform_restoration_chained(orig: CanonicalNLP, opts: Options,
     """Run the nested chained restoration IPM for every lane of ``orig`` (all
     of which entered restoration); ``ipm_step_fn(nlp, opts, state)`` is the
     solver's step without a restoration fallback."""
-    from .solver import IPMState, counters_init, robust_state_init
-
     ch: ChainInfo = orig.chain
     K, v, mk = ch.K, ch.v, ch.mk
     vr = v + 2 * mk
     B, dtype, dev = orig.batch, it.x.dtype, it.x.device
-    izero = torch.zeros((B,), dtype=torch.int64, device=dev)
-    zero = torch.zeros((B,), dtype=dtype, device=dev)
-    inf = torch.full((B,), float("inf"), dtype=dtype, device=dev)
 
     c_val = ev.c
     dms_val = ev.d - it.s
@@ -145,6 +140,30 @@ def perform_restoration_chained(orig: CanonicalNLP, opts: Options,
                        torch.zeros_like(z_pn)], 2).reshape(B, -1),
         v_L=torch.clamp(it.v_L, max=rho), v_U=torch.clamp(it.v_U, max=rho))
 
+    return run_structured_restoration(
+        orig, opts, resto_opts, it, outer_mu, fs, theta_outer, phi_outer,
+        ipm_step_fn, resto, it_r, theta_entry_inf, resto_mu,
+        lambda x_r: x_r.reshape(x_r.shape[0], K + 1, vr)[:, :, :v].reshape(
+            x_r.shape[0], -1))
+
+
+def run_structured_restoration(orig: CanonicalNLP, opts: Options,
+                               resto_opts: Options, it: Iterate, outer_mu,
+                               fs: FilterState, theta_outer, phi_outer,
+                               ipm_step_fn, resto: CanonicalNLP, it_r: Iterate,
+                               theta_entry_inf, resto_mu, extract_x) -> RestoResult:
+    """The nested restoration IPM of a structured backend (chained, banded,
+    arrow) from its restoration NLP ``resto`` and entry iterate ``it_r``,
+    with the exit test on the original problem and the return to the main
+    algorithm; ``extract_x`` maps a restoration x to the original x.  On
+    return the equality multipliers are zero (``chained_resto.py:323-325``),
+    not the least-squares estimate of the dense restoration."""
+    from .solver import IPMState, counters_init, robust_state_init
+
+    B, dtype, dev = orig.batch, it.x.dtype, it.x.device
+    izero = torch.zeros((B,), dtype=torch.int64, device=dev)
+    zero = torch.zeros((B,), dtype=dtype, device=dev)
+    inf = torch.full((B,), float("inf"), dtype=dtype, device=dev)
     ev_r = evaluate(resto, it_r.x)
     theta0_r = ev_r.c.abs().sum(-1) + (ev_r.d - it_r.s).abs().sum(-1)
     st_r = IPMState(
@@ -166,9 +185,6 @@ def perform_restoration_chained(orig: CanonicalNLP, opts: Options,
 
     inf_pr_req = torch.clamp(opts.required_infeasibility_reduction * theta_entry_inf,
                              min=min(opts.tol, opts.constr_viol_tol))
-
-    def extract_x(x_r):
-        return x_r.reshape(x_r.shape[0], K + 1, vr)[:, :, :v].reshape(x_r.shape[0], -1)
 
     def orig_progress(s_r):
         """The exit test (RestoConvergenceCheck + TestOrigProgress) on the

@@ -1,9 +1,10 @@
 """The interior-point driver: IpoptAlgorithm::Optimize, over a batch.
 
 Port of ``ipopt_tpu/algorithm/solver.py`` (``src/Algorithm/IpIpoptAlg.cpp:
-292-417``) with the exact Hessian and the filter line search, on the dense,
-the chained (block-tridiagonal) and the banded (general sparsity,
-``linear_solver="banded-bcr"``) KKT backends:
+292-417``) with the exact or the limited-memory Hessian and the filter line
+search, on the dense, the chained (block-tridiagonal), the banded (general
+sparsity, ``linear_solver="banded-bcr"``) and the scenario (block-arrow) KKT
+backends:
 
     InitializeIterates -> CheckConvergence -> loop {
         UpdateHessian; UpdateBarrierParameter; ComputeSearchDirection;
@@ -29,6 +30,7 @@ from ..types import (Iterate, SolverReturn, col, max_init, tree_put, tree_take,
                      tree_where)
 from ..problem import NLP, CanonicalNLP, canonicalize
 from ..chained import ChainedNLP, canonicalize_chained
+from ..parallel.scenario import ScenarioNLP, canonicalize_scenario
 from ..options import Options
 from .. import kkt
 from ..kkt import Evals, evaluate, kkt_residuals, optimality_error, slacks
@@ -43,6 +45,7 @@ from .mu import (MuState, mu_init_state, monotone_mu_update_components,
                  avg_complementarity, loqo_mu, probing_mu, quality_function_mu)
 from .init import default_initialize, warm_start_initialize, least_squares_y
 from .convergence import check_convergence
+from .quasi_newton import LBFGSState, lbfgs_init
 
 _CONTINUE = int(SolverReturn.CONTINUE)
 
@@ -59,7 +62,7 @@ class UnsupportedOptionError(ValueError):
 
 # (option, supported values) of the features this port has.
 _SUPPORTED = (
-    ("hessian_approximation", ("exact",)),
+    ("hessian_approximation", ("exact", "limited-memory")),
     ("linear_solver", ("dense-ldlt", "banded-bcr")),
     ("inexact_algorithm", (False,)),
     ("line_search_method", ("filter",)),
@@ -138,14 +141,20 @@ class IPMState(NamedTuple):
     accepted_point: Iterate
     ams: AdaptiveMuState  # the adaptive mu strategy's per-lane carry
     eip_active: Any       # expect_infeasible_problem heuristic still armed
+    lbfgs: LBFGSState     # per-lane history (zero width with exact Hessians)
 
 
 def robust_state_init(opts: Options, it: Iterate) -> dict:
     """The filter-reset heuristic's carry, the previous accepted point, the
-    adaptive mu carry and the infeasibility heuristic's flag."""
+    adaptive mu carry, the infeasibility heuristic's flag and a fresh
+    L-BFGS history (a restoration starts its own, ``restoration.py:232-235``)."""
     B, dev = it.x.shape[0], it.x.device
     z = torch.zeros((B,), dtype=torch.int64, device=dev)
+    hist = (opts.limited_memory_max_history
+            if opts.hessian_approximation == "limited-memory" else 0)
     return dict(
+        lbfgs=lbfgs_init(B, it.x.shape[1], hist, it.x.dtype, dev,
+                         opts.limited_memory_init_val),
         filter_rej_count=z, n_filter_resets=z,
         last_rej_filter=torch.zeros((B,), dtype=torch.bool, device=dev),
         accepted_point=it, ams=adaptive_mu_init(B, it.x.dtype, dev),
@@ -282,8 +291,8 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
                              kkt.norm_inf(res0.grad_lag_s))
     primal_inf = torch.maximum(kkt.norm_inf(res0.c), kkt.norm_inf(res0.d_minus_s))
     compl_fn = _compl_max_fn(nlp, it, s_c)
-    # --- UpdateHessian (exact) --------------------------------------------
-    W = compute_hessian(nlp, it)
+    # --- UpdateHessian (exact or limited-memory, IpIpoptAlg.cpp:351) -------
+    W = _update_hessian(nlp, opts, st)
     adaptive = opts.mu_strategy == "adaptive" or opts.mehrotra_algorithm
     extra_solves = 2 if adaptive else 0
     ams = st.ams
@@ -488,6 +497,9 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
             if backend == "btd":
                 from .chained_resto import perform_restoration_chained
                 rr = perform_restoration_chained(sub, *args)
+            elif backend == "arrow":
+                from .arrow_resto import perform_restoration_arrow
+                rr = perform_restoration_arrow(sub, *args)
             elif backend == "banded":
                 from .banded_resto import perform_restoration_banded
                 rr = perform_restoration_banded(sub, *args)
@@ -629,6 +641,20 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
         eip_next = (eip_next & (theta_eip > opts.expect_infeasible_problem_ctol)
                     & ~need_resto)
 
+    # --- the L-BFGS pair update (LimMemQuasiNewtonUpdater), kept on the
+    #     accepted lanes only (solver.py:1150-1175)
+    lbfgs = st.lbfgs
+    if opts.hessian_approximation == "limited-memory":
+        from .quasi_newton import lbfgs_update
+        # the same multipliers on both gradients
+        s_vec = new_it.x - it.x
+        y_vec = ((ev_new.grad_f + kkt.jac_t(nlp, ev_new, new_it.y_c, new_it.y_d))
+                 - (ev.grad_f + kkt.jac_t(nlp, ev, new_it.y_c, new_it.y_d)))
+        nl_mask = _nonlinear_mask(nlp, opts)
+        if nl_mask is not None:
+            s_vec, y_vec = s_vec * nl_mask, y_vec * nl_mask
+        lbfgs = tree_where(accepted, lbfgs_update(lbfgs, s_vec, y_vec, opts), lbfgs)
+
     res_new = kkt_residuals(nlp, new_it, ev_new, 0.0)
     E, d_inf, p_inf, c_inf = optimality_error(nlp, new_it, res_new, opts.s_max)
     obj_change_rel = (ev_new.f - ev.f).abs() / torch.clamp(ev_new.f.abs(), min=1.0)
@@ -655,7 +681,7 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
     counters = Counters(
         n_obj_evals=n_obj,
         n_grad_evals=c.n_grad_evals + 1 + ls_failed.long(),
-        n_hess_evals=c.n_hess_evals + 1,
+        n_hess_evals=c.n_hess_evals + int(opts.hessian_approximation == "exact"),
         n_factorizations=c.n_factorizations + sr.num_trials,
         n_kkt_solves=c.n_kkt_solves + 1 + ls.n_soc_rounds + extra_solves)
     return IPMState(
@@ -673,7 +699,40 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
         wd_ref_theta=wd_ref_theta_next, wd_ref_phi=wd_ref_phi_next,
         soft_resto_count=soft_count, ev=ev_new, filter_rej_count=frc_next,
         n_filter_resets=nfr_next, last_rej_filter=lrf_next, accepted_point=st.it,
-        ams=ams, eip_active=eip_next)
+        ams=ams, eip_active=eip_next, lbfgs=lbfgs)
+
+
+def _nonlinear_mask(nlp: CanonicalNLP, opts: Options):
+    """With num_linear_variables and hessian_approximation_space=
+    "nonlinear-variables" (IpTNLPAdapter.cpp:2298-2315,
+    IpOrigIpoptNLP.cpp:124-130), the mask (n,) of the nonlinear variables
+    (the first num_linear_variables are linear); else None."""
+    if not (opts.num_linear_variables > 0
+            and opts.hessian_approximation_space == "nonlinear-variables"):
+        return None
+    s = nlp.struct
+    full = np.arange(s.n_full) >= opts.num_linear_variables
+    mask = full[s.free_idx] if s.n != s.n_full else full
+    return torch.as_tensor(mask, device=nlp.device).to(nlp.dtype)
+
+
+def _update_hessian(nlp: CanonicalNLP, opts: Options, st: IPMState):
+    """The exact Hessian of the backend, or the limited-memory one of every
+    lane (``solver.py:365-401``): its compact form for the SMW solvers (any
+    structured backend, or ``limited_memory_aug_solver="sherman-morrison"``),
+    else the dense matrix (``"extended"``)."""
+    if opts.hessian_approximation != "limited-memory":
+        return compute_hessian(nlp, st.it)
+    from .quasi_newton import lbfgs_compact, lbfgs_dense_W
+    nl_mask = _nonlinear_mask(nlp, opts)
+    if nlp.chain is not None or opts.limited_memory_aug_solver == "sherman-morrison":
+        if nl_mask is not None:
+            raise NotImplementedError(
+                "num_linear_variables with the nonlinear-variables "
+                "approximation space needs the dense low-rank path — "
+                "set limited_memory_aug_solver='extended'")
+        return lbfgs_compact(st.lbfgs, opts)
+    return lbfgs_dense_W(st.lbfgs, opts, nl_mask=nl_mask)
 
 
 def _oracle_mu(nlp: CanonicalNLP, opts: Options, it: Iterate, name: str,
@@ -993,7 +1052,8 @@ def solve(problem, options: Optional[Options] = None, device=None, it0=None,
     ``problem`` is an ``NLP`` (on the dense backend, or with
     ``linear_solver="banded-bcr"`` on the banded backend of
     ``ipopt_torch.sparse``), a ``ChainedNLP`` (solved on the
-    block-tridiagonal backend) or a canonical problem with one lane.  The
+    block-tridiagonal backend), a ``ScenarioNLP`` (solved on the block-arrow
+    backend) or a canonical problem with one lane.  The
     solve runs on ``device``, by default the CUDA device; pass
     ``device="cpu"`` for the CPU.  Keyword arguments override options by
     their Ipopt names.  ``it0`` is a starting iterate, such as the
@@ -1038,6 +1098,8 @@ def solve(problem, options: Optional[Options] = None, device=None, it0=None,
         cnlp = canonicalize(problem, opts, device=dev)
     elif isinstance(problem, ChainedNLP):
         cnlp = canonicalize_chained(problem, opts, device=dev)
+    elif isinstance(problem, ScenarioNLP):
+        cnlp = canonicalize_scenario(problem, opts, device=dev)
     else:
         cnlp = problem.to(dev)
     if cnlp.batch != 1:

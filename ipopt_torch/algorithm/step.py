@@ -1,9 +1,14 @@
 """Search direction: the PDFullSpaceSolver + PDPerturbationHandler equivalent,
-over a batch (port of ``ipopt_tpu/algorithm/step.py``), with three KKT
+over a batch (port of ``ipopt_tpu/algorithm/step.py``), with four KKT
 backends chosen by the problem (``_backend``): the dense augmented system
 (K1), the block-tridiagonal system of a chained problem (``chained_kkt.py``,
-BCR with K2), and the RCM-banded system of a flat problem with
-``linear_solver="banded-bcr"`` (``ipopt_torch/sparse.py``, the same BCR).
+BCR with K2), the RCM-banded system of a flat problem with
+``linear_solver="banded-bcr"`` (``ipopt_torch/sparse.py``, the same BCR),
+and the block-arrow system of a scenario problem (``arrow_kkt.py``, K1 on
+the scenario blocks).  A limited-memory Hessian (``quasi_newton.LowRankW``)
+is solved by Sherman-Morrison-Woodbury around the backend's base system
+(``lowrank_kkt.py`` on the dense backend, ``lowrank_struct.py`` on the
+others).
 
 The reference runs each retry loop per instance under ``vmap``; here each
 loop runs over the batch while any lane is still active, and a lane that is
@@ -69,10 +74,13 @@ def _matvec(K, s):
     return torch.matmul(K, s.unsqueeze(-1)).squeeze(-1)
 
 
-def refine(matvec, solve, rhs, opts: Options):
+def refine(matvec, solve, rhs, opts: Options, improvement: bool = True):
     """Solve K x = rhs per lane with iterative refinement
     (IpPDFullSpaceSolver.cpp:235-345), given the products ``matvec(x)`` = K x
-    and the factorized solve ``solve(r)``; returns (sol, residual ratio)."""
+    and the factorized solve ``solve(r)``; returns (sol, residual ratio).
+    ``improvement=False`` drops the residual_improvement_factor test, as the
+    reference's arrow and low-rank refinements do (``arrow_kkt.py:270-298``,
+    ``lowrank_kkt.py:255-295``)."""
     sol = solve(rhs)
     B = rhs.shape[0]
     if opts.fast_step_computation:
@@ -85,7 +93,7 @@ def refine(matvec, solve, rhs, opts: Options):
 
     i = torch.zeros((B,), dtype=torch.int64, device=rhs.device)
     rr = ratio(sol)
-    imp = opts.residual_improvement_factor < 1e19
+    imp = improvement and opts.residual_improvement_factor < 1e19
     while True:
         active = (i < opts.min_refinement_steps) | (
             (i < opts.max_refinement_steps) & (rr > opts.residual_ratio_max))
@@ -186,21 +194,29 @@ def factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
 
 def _backend(nlp: CanonicalNLP) -> str:
     """"dense" without a structure, "banded" for a ``BandedInfo``
-    (``sparse.canonicalize_sparse``), "btd" for a chain's ``ChainInfo``."""
+    (``sparse.canonicalize_sparse``), "arrow" for a scenario problem's
+    ``ArrowInfo``, "btd" for a chain's ``ChainInfo``."""
     from ..sparse import BandedInfo
+    from ..parallel.scenario import ArrowInfo
     if nlp.chain is None:
         return "dense"
+    if isinstance(nlp.chain, ArrowInfo):
+        return "arrow"
     return "banded" if isinstance(nlp.chain, BandedInfo) else "btd"
 
 
 def compute_hessian(nlp: CanonicalNLP, it: Iterate):
     """The exact Lagrangian Hessian at the current iterate, shaped for the
-    backend: dense (B, n, n), the stage blocks (Wd, Wo) of a chain, or the
-    entry values (B, nnz) of the banded backend's pattern."""
+    backend: dense (B, n, n), the stage blocks (Wd, Wo) of a chain, the
+    scenario blocks (W00, W0s, Wss) of an arrow problem, or the entry values
+    (B, nnz) of the banded backend's pattern."""
     be = _backend(nlp)
     if be == "btd":
         from ..chained import stage_hessians
         return stage_hessians(nlp, it.x, it.y_c, it.y_d)
+    if be == "arrow":
+        from ..parallel.scenario import scenario_hessians
+        return scenario_hessians(nlp, it.x, it.y_c, it.y_d)
     if be == "banded":
         from ..sparse import sparse_hessian_values
         return sparse_hessian_values(nlp, it)
@@ -209,8 +225,21 @@ def compute_hessian(nlp: CanonicalNLP, it: Iterate):
 
 def factorize_any(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
                   hess, mu, delta_w_last):
-    """Backend dispatch of the inertia-corrected factorization."""
+    """Backend dispatch of the inertia-corrected factorization; ``hess`` is
+    backend-shaped, or a ``LowRankW`` (limited-memory Hessian)."""
+    from .quasi_newton import LowRankW
     be = _backend(nlp)
+    if isinstance(hess, LowRankW):
+        if be != "dense":
+            from .lowrank_struct import lowrank_struct_factorize
+            return lowrank_struct_factorize(nlp, opts, it, hess, mu, delta_w_last)
+        from .lowrank_kkt import lowrank_factorize_kkt
+        return lowrank_factorize_kkt(nlp, opts, it, ev, hess, mu, delta_w_last)
+    if be == "arrow":
+        from .arrow_kkt import arrow_factorize_kkt
+        from ..parallel.scenario import scenario_jacobians
+        return arrow_factorize_kkt(nlp, opts, it, scenario_jacobians(nlp, it.x),
+                                   hess, mu, delta_w_last)
     if be == "btd":
         from .chained_kkt import chained_factorize_kkt
         from ..chained import stage_jacobians
@@ -225,7 +254,18 @@ def factorize_any(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
 def solve_any(nlp: CanonicalNLP, opts: Options, fac, K, parts):
     """Solve the factorized augmented system for the four RHS blocks;
     returns ((dx, ds, dy_c, dy_d), residual_ratio)."""
+    from .lowrank_kkt import LowRankKKT, lowrank_solve_refined
+    from .lowrank_struct import StructLowRankKKT, lowrank_struct_solve_refined
+    if isinstance(fac, LowRankKKT):
+        return lowrank_solve_refined(fac, parts, opts)
+    if isinstance(fac, StructLowRankKKT):
+        return lowrank_struct_solve_refined(nlp, opts, fac, parts)
     be = _backend(nlp)
+    if be == "arrow":
+        from .arrow_kkt import pack_rhs_arrow, unpack_sol_arrow, arrow_solve_refined
+        (w0, ws), rr = arrow_solve_refined(K, fac, *pack_rhs_arrow(nlp, *parts),
+                                           opts)
+        return unpack_sol_arrow(nlp, w0, ws), rr
     if be in ("btd", "banded"):
         from .chained_kkt import chained_solve_refined
         if be == "btd":
@@ -256,7 +296,8 @@ def compute_search_direction(nlp: CanonicalNLP, opts: Options, it: Iterate,
     parts = condensed_rhs_parts(nlp, it, ev, mu, opts.kappa_d)
     xsplit, rr = solve_any(nlp, opts, fr.fac, fr.K, parts)
     failed = fr.failed
-    if opts.neg_curv_test_tol > 0 and _backend(nlp) == "dense":
+    if (opts.neg_curv_test_tol > 0 and _backend(nlp) == "dense"
+            and isinstance(W, torch.Tensor)):
         # Inertia-free curvature test (IpPDFullSpaceSolver.cpp:592-637).
         dx = xsplit[0]
         dxdx = (dx * dx).sum(-1)

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .chained import ChainInfo, flat_callables
+from .parallel import scenario as _scenario
 from .sparse import BandedInfo
 from .options import Options
 from .problem import ARRAY_FIELDS, CanonicalNLP, CanonicalStructure
@@ -80,6 +81,43 @@ def chained_from_arrays(struct_fields: Mapping[str, Any],
     f, g = flat_callables(info.K, info.v, f_stage, g_stage, f_last)
     return canonical_from_arrays(struct_fields, arrays, f, g, device=device,
                                  dtype=dtype)._replace(chain=info)
+
+
+def scenario_from_arrays(struct_fields: Mapping[str, Any],
+                         arrays: Mapping[str, Any],
+                         arrow_fields: Mapping[str, Any], f_scen: Callable,
+                         g_scen: Callable, f0: Optional[Callable] = None,
+                         device="cpu", dtype=torch.float64) -> CanonicalNLP:
+    """A port scenario ``CanonicalNLP`` from a reference one: its structure
+    and arrays as for ``canonical_from_arrays`` (``params`` is
+    ``{"theta": ...}``), the ``ArrowInfo`` fields ``S, n0, ns, ms,
+    eq_mask``, and the port's torch scenario callables."""
+    info = _scenario.ArrowInfo(
+        S=int(arrow_fields["S"]), n0=int(arrow_fields["n0"]),
+        ns=int(arrow_fields["ns"]), ms=int(arrow_fields["ms"]), f_scen=f_scen,
+        g_scen=g_scen, f0=f0,
+        eq_mask=np.asarray(arrow_fields["eq_mask"], dtype=bool))
+    f, g = _scenario.flat_callables(info.S, info.n0, info.ns, f_scen, g_scen, f0)
+    return canonical_from_arrays(struct_fields, arrays, f, g, device=device,
+                                 dtype=dtype)._replace(chain=info)
+
+
+def lbfgs_from_arrays(S, Y, count, head, sigma, skips, device="cpu",
+                      dtype=torch.float64):
+    """A port ``LBFGSState`` from a reference one's fields, as numpy: S and Y
+    (n, hist) and the scalars of one history get a batch axis of one;
+    already batched fields (B, n, hist) and (B,) pass as they are."""
+    from .algorithm.quasi_newton import LBFGSState
+    batched = np.asarray(S).ndim == 3
+
+    def t(v, floating):
+        a = torch.as_tensor(np.array(v), device=device)
+        a = a.to(dtype) if floating else a.to(torch.int64)
+        return a if batched else a[None]
+
+    return LBFGSState(S=t(S, True), Y=t(Y, True), count=t(count, False),
+                      head=t(head, False), sigma=t(sigma, True),
+                      skips=t(skips, False))
 
 
 def iterate_from_arrays(blocks: Sequence[Any], device="cpu",

@@ -25,7 +25,9 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from .block_ldlt import block_ldlt
 from .block_ldlt_inv import block_ldlt_inv
+from .ldlt import tri_solve_unit_lower, _safe
 
 
 def _t(M):
@@ -34,6 +36,63 @@ def _t(M):
 
 def _mv(M, x):
     return torch.matmul(M, x.unsqueeze(-1)).squeeze(-1)
+
+
+# ---------------------------------------------------------------------------
+# Independent blocks: LDL^T and explicit inverses (the scenario blocks of the
+# arrow backend, ``block_tridiag.py:99-182`` of the reference)
+# ---------------------------------------------------------------------------
+
+def batched_block_ldlt(A):
+    """(nb, b, b) -> (L, d): K1 on a CUDA tensor, its plain version on a CPU
+    tensor (``block_tridiag.py:118-124``)."""
+    return block_ldlt(A.contiguous())
+
+
+def _block_solve(L, d, B):
+    """(L D L^T)^{-1} B per block by substitution; B is (nb, b, k)."""
+    y = tri_solve_unit_lower(L, B)
+    return tri_solve_unit_lower(L, y / _safe(d)[..., None], transpose=True)
+
+
+def _tri_unit_inv_logdepth(L):
+    """Inverse of the unit-lower-triangular L (nb, b, b) by the nilpotent
+    product inv(L) = prod_k (I + T^(2^k)), T = I - L: ceil(log2 b) batched
+    products (``block_tridiag.py:127-143``)."""
+    b = L.shape[-1]
+    eye = torch.eye(b, dtype=L.dtype, device=L.device)
+    T = eye - L
+    acc = eye + T
+    steps = max((max(b, 2) - 1).bit_length(), 1)
+    for _ in range(steps - 1):
+        T = torch.matmul(T, T)
+        acc = torch.matmul(acc, eye + T)
+    return acc
+
+
+def ldlt_inverse_newton(A, L, d):
+    """A^{-1} = L^{-T} D^{-1} L^{-1} from the log-depth inverse of L, then
+    one Newton step X (2 I - A X) (``block_tridiag.py:163-176``): the inverse
+    step of ``batched_block_ldlt_inv``'s card branch for b <= 64.  The
+    products are IEEE float64/float32 matmuls (TF32 stays off)."""
+    Li = _tri_unit_inv_logdepth(L)
+    Ainv = torch.matmul(_t(Li), Li / _safe(d)[..., None])
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return torch.matmul(Ainv, 2.0 * eye - torch.matmul(A, Ainv))
+
+
+def batched_block_ldlt_inv(A):
+    """(nb, b, b) -> (d, Ainv): the pivots (for the inertia) and explicit
+    inverses of independent symmetric blocks (``block_tridiag.py:146-182``).
+    The reference runs two algorithms and so does the port, by the tensor's
+    device: on the CPU the plain LDL^T and substitution; on the card K1,
+    then for b <= 64 ``ldlt_inverse_newton`` and above the substitution."""
+    L, d = batched_block_ldlt(A)
+    b = A.shape[-1]
+    if A.device.type != "cpu" and b <= 64:
+        return d, ldlt_inverse_newton(A, L, d)
+    eye = torch.eye(b, dtype=A.dtype, device=A.device).expand(A.shape)
+    return d, _block_solve(L, d, eye)
 
 
 class BTDMatrix(NamedTuple):
@@ -212,35 +271,37 @@ bcr_factorize.calls = 0
 
 
 def bcr_solve(fac: BCRFactor, rhs):
-    """Solve K x = rhs per lane (rhs (B, nb*b)) with the BCR factorization;
-    with equilibration, x = D (D K D)^{-1} (D rhs)."""
+    """Solve K x = rhs per lane (rhs (B, nb*b), or (B, nb*b, k) for k
+    right-hand sides over the one factorization) with the BCR
+    factorization; with equilibration, x = D (D K D)^{-1} (D rhs)."""
     B, nb, b = rhs.shape[0], fac.nb, fac.b
-    R = rhs.reshape(B, nb, b) * fac.row_scale
+    R = rhs.reshape(B, nb, b, -1) * fac.row_scale[..., None]
+    k = R.shape[-1]
     stack = []
     for lvl in fac.levels:
         prepad = R.shape[1]
         if prepad % 2 == 1:
-            R = torch.cat([R, R.new_zeros((B, 1, b))], 1)
+            R = torch.cat([R, R.new_zeros((B, 1, b, k))], 1)
         R_e = R[:, 1::2]
         R_k = R[:, 0::2]
         # r_keep_t -= Gl^T r_e;  r_keep_{t+1} -= Gr^T r_e
-        R_k = R_k - _mv(_t(lvl.Gl), R_e)
-        R_k[:, 1:] -= _mv(_t(lvl.Gr), R_e)[:, :R_k.shape[1] - 1]
+        R_k = R_k - _t(lvl.Gl) @ R_e
+        R_k[:, 1:] -= (_t(lvl.Gr) @ R_e)[:, :R_k.shape[1] - 1]
         stack.append((R_e, prepad))
         R = R_k
-    X = _mv(fac.Ainv_root, R[:, 0])[:, None]
+    X = (fac.Ainv_root @ R[:, 0])[:, None]
     for lvl, (R_e, prepad) in zip(reversed(fac.levels), reversed(stack)):
         ne, nk = R_e.shape[1], X.shape[1]
         # x_e = Ainv r_e - Gl x_keep_t - Gr x_keep_{t+1}
-        x_e = _mv(lvl.Ainv, R_e)
-        x_e = x_e - _mv(lvl.Gl, X[:, :ne])
-        nbr = X.new_zeros((B, ne, b))
+        x_e = lvl.Ainv @ R_e
+        x_e = x_e - lvl.Gl @ X[:, :ne]
+        nbr = X.new_zeros((B, ne, b, k))
         take = min(ne, nk - 1)
         if take > 0:
             nbr[:, :take] = X[:, 1:1 + take]
-        x_e = x_e - _mv(lvl.Gr, nbr)
-        Xn = X.new_empty((B, nk + ne, b))
+        x_e = x_e - lvl.Gr @ nbr
+        Xn = X.new_empty((B, nk + ne, b, k))
         Xn[:, 0::2] = X
         Xn[:, 1::2] = x_e
         X = Xn[:, :prepad]
-    return (X * fac.row_scale).reshape(B, -1)
+    return (X * fac.row_scale[..., None]).reshape(rhs.shape)

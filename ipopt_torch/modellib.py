@@ -6,8 +6,10 @@ the chained LuksanVlcek1 and 1-D boundary-control problems
 declared sparsity of the banded backend (LuksanVlcek1 and the 2-D Mittelmann
 distributed control, ``bench.py:247-299``), LuksanVlcek 2-7 in equality (E)
 and inequality (I) form, and the 2-D Mittelmann boundary control chained
-over pairs of grid rows.  ``mittelmann_dist_control_3d`` comes with the
-multifrontal backend that solves it.
+over pairs of grid rows, and the two-stage stochastic QP of the reference's
+scenario tests (``tests/test_scenario.py:11``) for the block-arrow backend.
+``mittelmann_dist_control_3d`` comes with the multifrontal backend that
+solves it.
 
 The stage functions of a chained model are module-level functions or
 value-compared callables, so that two instances of one model share one
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from .chained import ChainedNLP
+from .parallel.scenario import ScenarioNLP
 from .problem import NLP
 from .types import DeviceConstant
 
@@ -571,3 +574,33 @@ def mittelmann_bndry_control(N: int, example: int = 1) -> ChainedNLP:
         g_L=np.full((K, 2 * N), rhs), g_U=np.full((K, 2 * N), rhs),
         x_L=x_L.reshape(K + 1, 2 * Ng), x_U=x_U.reshape(K + 1, 2 * Ng),
         name=f"mittelmann_bndry{example}_N{N}")
+
+
+def _sqp_f_scen(x0, xs, th):
+    return 0.5 * torch.sum((xs - th["t"]) ** 2)
+
+
+def _sqp_g_scen(x0, xs, th):
+    return torch.stack([x0[0] + torch.sum(xs)]) - th["b"]
+
+
+def _sqp_f0(x0):
+    return 0.5 * torch.sum(x0 ** 2)
+
+
+def stochastic_qp(S: int = 4, ns: int = 3, seed: int = 0) -> ScenarioNLP:
+    """Two-stage stochastic QP (``tests/test_scenario.py:11-38``):
+
+        min 0.5 ||x0||^2 + sum_s 0.5 ||x_s - t_s||^2
+        s.t. x0[0] + sum(x_s) = b_s  (one equality per scenario),  x_s >= -5
+
+    with x0 of 2 entries and t (S, ns), b (S, 1) drawn from
+    ``numpy.random.default_rng(seed)``; its scenario blocks are ns + 2 wide."""
+    rng = np.random.default_rng(seed)
+    t = rng.standard_normal((S, ns))
+    b = rng.standard_normal((S, 1))
+    return ScenarioNLP(
+        f_scen=_sqp_f_scen, g_scen=_sqp_g_scen, f0=_sqp_f0,
+        x0_init=np.zeros(2), xs_init=np.zeros((S, ns)),
+        g_L=np.zeros((S, 1)), g_U=np.zeros((S, 1)), xs_L=-5.0,
+        theta={"t": t, "b": b}, name="stoch_qp")

@@ -143,10 +143,11 @@ def device_us_per_launch(fn, pattern, rounds=5):
     return (sum(_device_us(e) for e in mine) / n if n else float("nan")), n
 
 
-def _capture(module, name, run):
+def _capture(module, name, run, into=None):
     """Every input ``module.name`` gets in one ``run()``, in call order
-    (copies on the same device).  The launches of this run count as usual."""
-    seen = []
+    (copies on the same device, appended to ``into`` if given).  The launches
+    of this run count as usual."""
+    seen = [] if into is None else into
     inner = getattr(module, name)
 
     def keep(A):
@@ -162,8 +163,13 @@ def _capture(module, name, run):
 
 
 def capture_k1_inputs(run):
-    """Every input K1 gets from the dense backend in one ``run()``."""
-    return _capture(ldlt_mod, "block_ldlt", run)
+    """Every input K1 gets in one ``run()``, in call order: the dense LDL^T
+    (dense KKT, Schur roots, condensed systems) and the independent blocks
+    of ``batched_block_ldlt_inv`` (the arrow backend's scenario blocks)."""
+    seen = []
+    return _capture(ldlt_mod, "block_ldlt",
+                    lambda: _capture(block_tridiag, "block_ldlt", run, into=seen),
+                    into=seen)
 
 
 def capture_k2_inputs(run):

@@ -174,7 +174,18 @@ def test_no_port_module_imports_jax():
     rel = {os.path.relpath(p, REPO) for p in paths}
     assert {"ipopt_torch/sparse.py", "ipopt_torch/algorithm/banded_resto.py",
             "ipopt_torch/interfaces/transforms.py",
-            "ipopt_torch/interfaces/dependency.py"} <= rel
+            "ipopt_torch/interfaces/dependency.py",
+            "ipopt_torch/parallel/scenario.py", "ipopt_torch/algorithm/arrow_kkt.py",
+            "ipopt_torch/algorithm/arrow_resto.py",
+            "ipopt_torch/algorithm/quasi_newton.py",
+            "ipopt_torch/algorithm/lowrank_kkt.py",
+            "ipopt_torch/algorithm/lowrank_struct.py",
+            "ipopt_torch/linalg/block_tridiag.py"} <= rel
+    # the independent-block half of block_tridiag (the arrow backend's)
+    with open(os.path.join(REPO, "ipopt_torch/linalg/block_tridiag.py")) as fh:
+        src = fh.read()
+    assert all(f"def {f}(" in src for f in ("batched_block_ldlt_inv",
+                                             "_tri_unit_inv_logdepth"))
     bad = [(os.path.relpath(p, REPO), m) for p in paths for m in _imports(p)
            if m.split(".")[0] in ("jax", "jaxlib", "ipopt_tpu")]
     assert not bad, bad

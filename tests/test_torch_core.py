@@ -102,10 +102,18 @@ def test_options_match_reference():
     assert convert.options_from_dict(dataclasses.asdict(ref)) == port
 
 
+SLICE_F_MODULES = ("ipopt_torch.parallel.scenario", "ipopt_torch.algorithm.arrow_kkt",
+                   "ipopt_torch.algorithm.arrow_resto", "ipopt_torch.algorithm.quasi_newton",
+                   "ipopt_torch.algorithm.lowrank_kkt",
+                   "ipopt_torch.algorithm.lowrank_struct")
+
+
 def test_port_imports_no_jax():
     code = ("import sys, ipopt_torch, ipopt_torch.convert, ipopt_torch.batch, "
             "ipopt_torch.algorithm.restoration, ipopt_torch.interfaces.transforms, "
-            "ipopt_torch.interfaces.dependency, chip_smoke\n"
+            "ipopt_torch.interfaces.dependency, chip_smoke, "
+            + ", ".join(SLICE_F_MODULES) + "\n"
+            f"assert all(m in sys.modules for m in {SLICE_F_MODULES!r})\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ipopt_tpu')]\n"
             "assert not bad, bad\n")
@@ -255,7 +263,7 @@ def test_solve_without_device_needs_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("opt", [
-    dict(derivative_test="first-order"), dict(hessian_approximation="limited-memory"),
+    dict(derivative_test="first-order"), dict(jacobian_approximation="finite-difference-values"),
     dict(linear_solver="multifrontal"), dict(line_search_method="cg-penalty"),
     dict(inexact_algorithm=True),
     dict(gradient_approximation="finite-difference-values")])

@@ -188,7 +188,7 @@ def test_timing_statistics_prints(capsys):
 
 def test_only_the_listed_options_are_refused():
     """_SUPPORTED refuses the features later slices bring, nothing else."""
-    refused = dict(hessian_approximation="limited-memory", linear_solver="multifrontal",
+    refused = dict(linear_solver="multifrontal",
                    inexact_algorithm=True, line_search_method="cg-penalty",
                    derivative_test="first-order",
                    gradient_approximation="finite-difference-values",
@@ -202,5 +202,8 @@ def test_only_the_listed_options_are_refused():
                dict(replace_bounds=True), dict(dependency_detector="mumps"),
                dict(magic_steps=True), dict(soc_method=1), dict(recalc_y=True),
                dict(max_wall_time=10.0), dict(hessian_constant=True),
-               dict(nlp_scaling_method="equilibration-based")):
+               dict(nlp_scaling_method="equilibration-based"),
+               dict(hessian_approximation="limited-memory"),
+               dict(hessian_approximation="limited-memory",
+                    limited_memory_aug_solver="extended")):
         check_supported(ipopt_torch.Options(**kw))

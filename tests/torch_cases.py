@@ -12,6 +12,10 @@ it with the reference alone.
 """
 import numpy as np
 
+# Lanes of the HS071 family (modellib.hs071_family(0.005 * lane)) whose
+# limited-memory solve ends one iteration apart under a 1e-15 relative
+# perturbation of the SMW matrix
+FAMILY_LBFGS_SENSITIVE = (286, 287, 294)
 BENCH = dict(tol=1e-8, acceptable_tol=1e-6, acceptable_iter=10)
 WARM = dict(warm_start_init_point=True, mu_init=1e-6, bound_mult_init_val=1e-3)
 ADAPTIVE = dict(mu_strategy="adaptive")
@@ -120,8 +124,74 @@ HS_SPECS = {
 }
 
 
-# lanes 0, 255 and 511 of the 512-instance HS071 family (bench.py:121-133)
-for _i in (0, 255, 511):
+# the flat twin of the scenario problem stochastic_qp (tests/test_scenario.py:41)
+HS_SPECS["stoch_qp_flat"] = lambda m, arr: _stoch_qp_flat(m, arr)
+# Colville, bounds only (tests/problems.py:82), and the problem whose first
+# variable is linear (test_wired_options.py:586-602)
+HS_SPECS["hs038"] = lambda m, arr: dict(
+    f=lambda x: (100 * (x[1] - x[0] ** 2) ** 2 + (1 - x[0]) ** 2
+                 + 90 * (x[3] - x[2] ** 2) ** 2 + (1 - x[2]) ** 2
+                 + 10.1 * ((x[1] - 1) ** 2 + (x[3] - 1) ** 2)
+                 + 19.8 * (x[1] - 1) * (x[3] - 1)),
+    x_L=-10.0, x_U=10.0, x0=np.array([-3.0, -1.0, -3.0, -1.0]))
+HS_SPECS["linear_x0"] = lambda m, arr: dict(
+    f=lambda x: x[0] + (x[1] - 1.0) ** 4, x_L=np.array([0.0, -5.0]),
+    x_U=np.array([5.0, 5.0]), x0=np.array([2.0, 2.0]))
+
+
+def _stoch_qp_data(S, ns, seed):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((S, ns)), rng.standard_normal((S, 1))
+
+
+def _stoch_qp_flat(m, arr, S=4, ns=3, seed=0):
+    t, b = (m.asarray(v) for v in _stoch_qp_data(S, ns, seed))
+    n0 = 2
+
+    def f(x):
+        return 0.5 * m.sum(x[:n0] ** 2) + 0.5 * m.sum((x[n0:].reshape(S, ns) - t) ** 2)
+
+    def g(x):
+        return x[0] + x[n0:].reshape(S, ns).sum(1) - b[:, 0]
+
+    return dict(f=f, g=g, x0=np.zeros(n0 + S * ns), g_L=np.zeros(S), g_U=np.zeros(S),
+                x_L=np.concatenate([np.full(n0, -np.inf), np.full(S * ns, -5.0)]))
+
+
+# Scenario problems (ScenarioNLP keyword arguments), in the functions of
+# either package: the two-stage stochastic QP of tests/test_scenario.py:11
+# and the inconsistent scenario equalities of tests/test_arrow_resto.py:34.
+SCENARIO_SPECS = {
+    "stoch_qp": lambda m, arr, S=4, ns=3, seed=0: dict(
+        f_scen=lambda x0, xs, th: 0.5 * m.sum((xs - th["t"]) ** 2),
+        g_scen=lambda x0, xs, th: arr([x0[0] + m.sum(xs)]) - th["b"],
+        f0=lambda x0: 0.5 * m.sum(x0 ** 2),
+        x0_init=np.zeros(2), xs_init=np.zeros((S, ns)),
+        g_L=np.zeros((S, 1)), g_U=np.zeros((S, 1)), xs_L=-5.0,
+        theta=dict(zip(("t", "b"), _stoch_qp_data(S, ns, seed))), name="stoch_qp"),
+    # equality and inequality rows, x0 coupled into the scenario Hessians
+    "scen_mixed": lambda m, arr, S=4, ns=3, seed=1: dict(
+        f_scen=lambda x0, xs, th: (0.5 * m.sum((xs - th["t"]) ** 2)
+                                   + 0.1 * x0[1] * m.sum(xs ** 2)),
+        g_scen=lambda x0, xs, th: arr([x0[0] + m.sum(xs) - th["b"][0],
+                                       xs[0] * xs[1] + x0[1]]),
+        f0=lambda x0: 0.5 * m.sum(x0 ** 2),
+        x0_init=np.array([0.5, 0.5]), xs_init=np.full((S, ns), 0.5),
+        g_L=np.array([0.0, -1.0]), g_U=np.array([0.0, np.inf]),
+        x0_L=np.array([-np.inf, 0.0]), xs_L=-5.0,
+        theta=dict(zip(("t", "b"), _stoch_qp_data(S, ns, seed)))),
+    "scen_infeasible": lambda m, arr, S=4, ns=3: dict(
+        f_scen=lambda x0, xs, th: 0.5 * m.sum(xs ** 2),
+        g_scen=lambda x0, xs, th: arr([xs[0] - 1.0, xs[0] + 1.0]),
+        x0_init=np.zeros(1), xs_init=np.zeros((S, ns)),
+        g_L=np.zeros((S, 2)), g_U=np.zeros((S, 2))),
+}
+
+
+# lanes 0, 255 and 511 of the 512-instance HS071 family (bench.py:121-133),
+# and the lanes whose L-BFGS solve moves by one iteration with the rounding
+# (tests/test_torch_lbfgs.py::test_family_lanes_are_rounding_sensitive)
+for _i in (0, 255, 511) + FAMILY_LBFGS_SENSITIVE:
     HS_SPECS[f"hs071_fam{_i}"] = (lambda m, arr, d=0.005 * _i:
                                   _hs071_spec(m, arr, d))
 
@@ -136,7 +206,8 @@ def _hs071_spec(m, arr, d):
 
 def build(problem, pkg: str):
     """The problem ``problem`` built by ``pkg`` ("ref" or "port"): a key of
-    HS_SPECS, or a (modellib function, args) pair."""
+    HS_SPECS, a ("scenario", key of SCENARIO_SPECS, args) triple, or a
+    (modellib function, args) pair."""
     if pkg == "ref":
         import jax.numpy as m
         import ipopt_tpu as P
@@ -147,6 +218,8 @@ def build(problem, pkg: str):
         arr = m.stack
     if isinstance(problem, str):
         return P.NLP(name=problem, **HS_SPECS[problem](m, arr))
+    if problem[0] == "scenario":
+        return P.ScenarioNLP(**SCENARIO_SPECS[problem[1]](m, arr, *problem[2]))
     fn, args = problem
     return getattr(P.modellib, fn)(*args)
 
@@ -263,6 +336,53 @@ for _name, (_prob, _opts) in {
         "dependency": ("hs048_dup", dict(dependency_detector="mumps")),
 }.items():
     CASES[_name] = _c(_prob, _opts)
+
+# -- slice F: the scenario (block-arrow) backend and limited-memory Hessians
+#    (tests/test_scenario.py, test_arrow_resto.py, test_lbfgs.py,
+#    test_structured_combos.py:31-61, test_wired_options.py:148-207, 574-602)
+LBFGS = dict(hessian_approximation="limited-memory")
+for _name, (_prob, _opts) in {
+        "scen_qp": (("scenario", "stoch_qp", ()), {}),
+        "scen_mixed": (("scenario", "scen_mixed", ()), {}),
+        "scen_mixed_lbfgs_sr1": (("scenario", "scen_mixed", ()), dict(
+            LBFGS, limited_memory_update_type="sr1", max_iter=300)),
+        "scen_qp_flat": ("stoch_qp_flat", {}),
+        "scen_qp_lbfgs": (("scenario", "stoch_qp", ()), dict(LBFGS, tol=1e-6,
+                                                             max_iter=300)),
+        "scen_infeasible": (("scenario", "scen_infeasible", ()), dict(tol=1e-8)),
+        "scen_infeasible_lbfgs": (("scenario", "scen_infeasible", ()),
+                                  dict(LBFGS, tol=1e-8)),
+        "hs071_lbfgs": ("hs071_d0", dict(LBFGS, max_iter=300)),
+        "hs071_lbfgs_extended": ("hs071_d0", dict(LBFGS, max_iter=300,
+                                                  limited_memory_aug_solver="extended")),
+        "hs038_lbfgs": ("hs038", dict(LBFGS, max_iter=500)),
+        "hs035_lbfgs": ("hs035", dict(LBFGS, max_iter=300)),
+        "lv1_64_lbfgs": (("luksan_vlcek1", (64, 4)), dict(LBFGS, tol=1e-6,
+                                                          max_iter=300)),
+
+        "rosenbrock_lbfgs": ("rosenbrock", dict(LBFGS, tol=1e-6)),
+        "hs071_lbfgs_sr1": ("hs071_d0", dict(LBFGS, max_iter=300,
+                                             limited_memory_update_type="sr1")),
+        "masked_qn": ("linear_x0", dict(LBFGS, tol=1e-6, num_linear_variables=1,
+                                        limited_memory_aug_solver="extended")),
+        "infeasible_lbfgs": ("infeasible", dict(LBFGS, max_iter=100)),
+        "hs071_lbfgs_special_resto": ("hs071_d0", dict(
+            LBFGS, tol=1e-8, start_with_resto=True,
+            limited_memory_special_for_resto=True)),
+}.items():
+    CASES[_name] = _c(_prob, _opts, suite="arrow" if _name.startswith("scen")
+                      else "lbfgs")
+# its objective is 1.8e-11 at tol 1e-6: held to 1e-12 absolute
+CASES["lv5_64_lbfgs_banded"] = _c(("luksan_vlcek5", (64,)), dict(
+    LBFGS, tol=1e-6, max_iter=300, linear_solver="banded-bcr"), suite="lbfgs",
+    obj_atol=1e-12)
+for _i in FAMILY_LBFGS_SENSITIVE:
+    CASES[f"hs071_fam{_i}_lbfgs"] = _c(f"hs071_fam{_i}", dict(LBFGS, max_iter=300),
+                                       suite="lbfgs_sensitive")
+for _strat in ("scalar2", "scalar3", "scalar4", "constant"):
+    CASES[f"hs071_lbfgs_{_strat}"] = _c(
+        "hs071_d0", dict(LBFGS, max_iter=300, limited_memory_initialization=_strat,
+                         limited_memory_init_val=2.5), suite="lbfgs")
 
 # -- the problem suites (tests/problems.py:289, test_robustness_suite.py,
 #    test_scalable_suite.py) ---------------------------------------------
