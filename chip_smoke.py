@@ -76,11 +76,25 @@ Phases, in order (any failure exits non-zero before the result line):
    family), chained (``luksan_vlcek1(4096, 32)``), arrow (F1's problem) and
    banded (``luksan_vlcek1_flat(1e5)``) backends, each at status 0 with
    its launches counted, the smaller instances card against CPU;
-11. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error,
+11. slice G, float64: G1 the multifrontal backend at full width,
+   ``mittelmann_dist_control_3d(24)`` (41,472 KKT unknowns in 15 tree
+   levels), cold (capturing K1's inputs) then warm with the counts from 0:
+   status 0, K1 once per level of every factorization, bit-equal to its
+   plain version on every input and timed per level beside its bound, the
+   plain version and ``torch.linalg.ldl_factor_ex``; N = 16 against the
+   reference's values, N = 10 card against CPU; G2 K1 on seeded stacks at
+   N = 32's widest fronts; G3 the multifrontal restoration (card against
+   CPU) and ``mittelmann_dist_control(30)`` on the multifrontal and banded
+   backends, each against the reference's values; G4 hs071 under
+   ``linear_solver="minres"``, ``inexact_algorithm``, ``cg-penalty`` and
+   ``penalty`` (card against CPU and the reference), the 1-D control with
+   the inexact algorithm, and cg-penalty on ``luksan_vlcek1(4096, 32)``
+   against the reference, K2 within its rule on every input;
+12. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error,
    time, the plain version's and the library call's time and the least time
    the card could take, both kernels' launches per path, K2's numbers per
-   path and its launch plans;
-12. the last line: ``{"ok": true, "device": {...}}``.
+   path and its launch plans, K1's per multifrontal level;
+13. the last line: ``{"ok": true, "device": {...}}``.
 
 Each phase's start is printed with the seconds since the script started.
 It needs a CUDA device and the ``ipopt_torch`` package next to it;
@@ -493,6 +507,95 @@ def k2_bound(nb, b, dtype=None):
 PATH_TOL_INV, PATH_TOL_D = 1e-11, 1e-10
 
 
+def _k2_compare(A, d_k, inv_k, d_p, inv_p):
+    """The rule ``check_k2_on_path`` holds K2 (d_k, inv_k) to beside its
+    plain version (d_p, inv_p) on the blocks A (nb, b, b): equal inertia
+    counts and live pivot signs and the same finite pattern on every block;
+    Ainv and d within the limits above on the blocks without a guarded
+    pivot.  Returns the verdict, the reason and the worst errors."""
+    import torch
+    from ipopt_torch.linalg.block_tridiag import _block_inertia_counts
+    from ipopt_torch.linalg.ldlt import _pivot_tols
+    tiny = torch.finfo(torch.float64).tiny
+    eps = torch.finfo(torch.float64).eps
+    guard = ~(d_p.abs() > tiny)        # zero or NaN pivots: the guard fired
+    guarded = guard.any(-1)
+    counts_k = torch.stack(_block_inertia_counts(d_k[:, None], 0.0))
+    counts_p = torch.stack(_block_inertia_counts(d_p[:, None], 0.0))
+    live = d_p.abs() > _pivot_tols(d_p.abs().amax(-1), torch.float64, 0.0)[:, None]
+    signs_ok = bool(((torch.sign(d_k) == torch.sign(d_p)) | ~live).all())
+    pattern_ok = (torch.equal(torch.isfinite(inv_k), torch.isfinite(inv_p))
+                  and torch.equal(torch.isfinite(d_k), torch.isfinite(d_p)))
+    fin = torch.isfinite(inv_p) & torch.isfinite(inv_k)
+    diff = torch.where(fin, inv_k - inv_p, 0.0).abs().amax((1, 2))
+    scale = torch.where(fin, inv_p, 0.0).abs().amax((1, 2)).clamp(min=1.0)
+    rel_inv = diff / scale
+    b = A.shape[-1]
+    growth = torch.maximum(A.abs().amax((1, 2)),
+                           d_p.abs().nan_to_num(0.0, 0.0, 0.0).amax(-1))
+    limit = torch.maximum(PATH_TOL_INV * scale, b * eps * growth * scale ** 2)
+    ratio = diff / limit
+    rel_d = ((d_k - d_p).abs() / d_p.abs()).nan_to_num(0.0, 0.0, 0.0).amax(-1)
+    worst = {"regular": [0.0, 0.0], "guarded": [0.0, 0.0]}
+    for key, mask in (("regular", ~guarded), ("guarded", guarded)):
+        if bool(mask.any()):
+            worst[key] = [float(rel_inv[mask].max()), float(rel_d[mask].max())]
+    reg = ~guarded
+    max_abs_err = worst_ratio = worst_resid = 0.0
+    if bool(reg.any()):
+        max_abs_err = max(float(diff[reg].max()), float((d_k - d_p)[reg].abs().max()))
+        worst_ratio = float(ratio[reg].max())
+        eye = torch.eye(b, dtype=A.dtype, device=A.device)
+        res_k = (A[reg] @ inv_k[reg] - eye).abs().amax((1, 2))
+        res_p = (A[reg] @ inv_p[reg] - eye).abs().amax((1, 2))
+        worst_resid = float((res_k / res_p.clamp(min=eps)).max())
+    close = bool((ratio[reg] <= 1.0).all() and (rel_d[reg] <= PATH_TOL_D).all())
+    inertia_ok = torch.equal(counts_k, counts_p)
+    why = (f"disagrees with its plain version (inertia equal {inertia_ok}, signs "
+           f"{signs_ok}, finite pattern {pattern_ok}, regular blocks within limits "
+           f"{close}: |dAinv| / limit {worst_ratio:.3e}, rel d "
+           f"{float(rel_d[reg].max()) if bool(reg.any()) else 0.0:.3e})")
+    return dict(ok=inertia_ok and signs_ok and pattern_ok and close, why=why,
+                guard=guard, guarded=guarded, worst=worst, max_abs_err=max_abs_err,
+                worst_ratio=worst_ratio, worst_resid=worst_resid)
+
+
+def check_k2_stacked(inputs, path, card):
+    """K2 on every input a solve gave it, as launched, against its plain
+    version run once on all the inputs of each shape stacked (the plain
+    version treats each block on its own), by ``_k2_compare``'s rule.  For
+    solves with thousands of inputs, where one plain call per input would
+    take minutes."""
+    import torch
+    from ipopt_torch.linalg import block_ldlt_inv as k2
+    by_shape = {}
+    for A in inputs:
+        by_shape.setdefault(tuple(A.shape), []).append(A)
+    worst_ratio = max_abs_err = 0.0
+    for shape, group in sorted(by_shape.items()):
+        outs = [k2.block_ldlt_inv(A) for A in group]
+        A_all = torch.cat(group)
+        d_k = torch.cat([o[0] for o in outs])
+        inv_k = torch.cat([o[1] for o in outs])
+        del outs
+        d_p, inv_p = k2.block_ldlt_inv_plain(A_all)
+        c = _k2_compare(A_all, d_k, inv_k, d_p, inv_p)
+        n_guarded = int(c["guarded"].sum())
+        log(f"K2 on the {path} path, {len(group)} inputs of {shape}: {n_guarded} of "
+            f"{A_all.shape[0]} blocks with a guarded pivot; |dAinv| / limit "
+            f"{c['worst_ratio']:.3e}, max rel err Ainv {c['worst']['regular'][0]:.3e}, d "
+            f"{c['worst']['regular'][1]:.3e} on the others -> "
+            f"{'ok' if c['ok'] else 'FAIL'}")
+        if not c["ok"]:
+            raise SystemExit(f"K2 on the {path} path: inputs of {shape} {c['why']}")
+        worst_ratio = max(worst_ratio, c["worst_ratio"])
+        max_abs_err = max(max_abs_err, c["max_abs_err"])
+        del A_all, d_k, inv_k, d_p, inv_p
+    log(f"K2 on the {path} path: all {len(inputs)} inputs within the rule; card {card}")
+    return dict(inputs=len(inputs), shapes=[list(k) for k in sorted(by_shape)],
+                worst_ratio=worst_ratio, max_abs_err=max_abs_err)
+
+
 def check_k2_on_path(dev, inputs, per, path, card):
     """K2 on every input a warm solve of ``path`` gave it (captured from one
     more warm solve; ``per`` launches per factorization, one per BCR level
@@ -507,15 +610,11 @@ def check_k2_on_path(dev, inputs, per, path, card):
     import torch
     from ipopt_torch.linalg import block_ldlt_inv as k2
     from ipopt_torch.linalg.block_ldlt import _safe_pivot
-    from ipopt_torch.linalg.block_tridiag import _block_inertia_counts
-    from ipopt_torch.linalg.ldlt import _pivot_tols
     if not inputs or len(inputs) % per:
         raise SystemExit(f"K2 on the {path} path: {len(inputs)} inputs, not a multiple "
                          f"of {per}")
     names = [f"ne={A.shape[0]}" for A in inputs[:per - 1]] + ["root"]
     b_path = inputs[0].shape[-1]
-    tiny = torch.finfo(torch.float64).tiny
-    eps = torch.finfo(torch.float64).eps
     level_ms, worst = [], {"regular": [0.0, 0.0], "guarded": [0.0, 0.0]}
     worst_ratio = worst_resid = 0.0
     max_abs_err, first_guarded = 0.0, []
@@ -525,47 +624,18 @@ def check_k2_on_path(dev, inputs, per, path, card):
         for A in group:
             d_k, inv_k = k2.block_ldlt_inv(A)
             d_p, inv_p = k2.block_ldlt_inv_plain(A)
-            guard = ~(d_p.abs() > tiny)        # zero or NaN pivots: the guard fired
-            guarded = guard.any(-1)
-            counts_k = torch.stack(_block_inertia_counts(d_k[:, None], 0.0))
-            counts_p = torch.stack(_block_inertia_counts(d_p[:, None], 0.0))
-            live = d_p.abs() > _pivot_tols(d_p.abs().amax(-1), torch.float64, 0.0)[:, None]
-            signs_ok = bool(((torch.sign(d_k) == torch.sign(d_p)) | ~live).all())
-            pattern_ok = (torch.equal(torch.isfinite(inv_k), torch.isfinite(inv_p))
-                          and torch.equal(torch.isfinite(d_k), torch.isfinite(d_p)))
-            fin = torch.isfinite(inv_p) & torch.isfinite(inv_k)
-            diff = torch.where(fin, inv_k - inv_p, 0.0).abs().amax((1, 2))
-            scale = torch.where(fin, inv_p, 0.0).abs().amax((1, 2)).clamp(min=1.0)
-            rel_inv = diff / scale
-            b = A.shape[-1]
-            growth = torch.maximum(A.abs().amax((1, 2)),
-                                   d_p.abs().nan_to_num(0.0, 0.0, 0.0).amax(-1))
-            limit = torch.maximum(PATH_TOL_INV * scale, b * eps * growth * scale ** 2)
-            ratio = diff / limit
-            rel_d = ((d_k - d_p).abs() / d_p.abs()).nan_to_num(0.0, 0.0, 0.0).amax(-1)
-            for key, mask in (("regular", ~guarded), ("guarded", guarded)):
-                if bool(mask.any()):
-                    worst[key][0] = max(worst[key][0], float(rel_inv[mask].max()))
-                    worst[key][1] = max(worst[key][1], float(rel_d[mask].max()))
-            reg = ~guarded
-            if bool(reg.any()):
-                max_abs_err = max(max_abs_err, float(diff[reg].max()),
-                                  float((d_k - d_p)[reg].abs().max()))
-                worst_ratio = max(worst_ratio, float(ratio[reg].max()))
-                eye = torch.eye(b, dtype=A.dtype, device=A.device)
-                res_k = (A[reg] @ inv_k[reg] - eye).abs().amax((1, 2))
-                res_p = (A[reg] @ inv_p[reg] - eye).abs().amax((1, 2))
-                worst_resid = max(worst_resid, float((res_k / res_p.clamp(min=eps)).max()))
+            c = _k2_compare(A, d_k, inv_k, d_p, inv_p)
+            guard, guarded = c["guard"], c["guarded"]
+            for key in ("regular", "guarded"):
+                worst[key][0] = max(worst[key][0], c["worst"][key][0])
+                worst[key][1] = max(worst[key][1], c["worst"][key][1])
+            max_abs_err = max(max_abs_err, c["max_abs_err"])
+            worst_ratio = max(worst_ratio, c["worst_ratio"])
+            worst_resid = max(worst_resid, c["worst_resid"])
             if lev == 0:
                 first_guarded.append(bool(guarded.any()))
-            close = bool((ratio[reg] <= 1.0).all() and (rel_d[reg] <= PATH_TOL_D).all())
-            if not (torch.equal(counts_k, counts_p) and signs_ok and pattern_ok and close):
-                raise SystemExit(
-                    f"K2 on the {path} path: level {name} disagrees with its plain version "
-                    f"(inertia equal {torch.equal(counts_k, counts_p)}, signs {signs_ok}, "
-                    f"finite pattern {pattern_ok}, regular blocks within limits {close}: "
-                    f"|dAinv| / limit {float(ratio[reg].max()) if bool(reg.any()) else 0.0:.3e}, "
-                    f"rel d {float(rel_d[reg].max()) if bool(reg.any()) else 0.0:.3e})")
+            if not c["ok"]:
+                raise SystemExit(f"K2 on the {path} path: level {name} {c['why']}")
             # pivots outside the fast quotients' range: powers of two take the
             # exact reciprocal's branch, the others the library division
             sp = _safe_pivot(d_k)
@@ -979,7 +1049,7 @@ class MittK2Check:
     """K2 against its plain version on the inputs of a solve whose blocks
     the unpivoted sweep cannot invert accurately (Mittelmann N = 100): every
     input, timed in ``seconds`` so that a solve that runs the checks can
-    report its own wall without them.
+    report its own wall without them (``flush`` before the wall ends).
 
     Per block: the finite pattern of Ainv and d equal to the plain
     version's, and either the forward rule of ``check_k2_on_path`` (|dAinv|
@@ -997,27 +1067,50 @@ class MittK2Check:
     (printed, not held: where the pivots are this inaccurate, their signs
     are not determined either)."""
 
+    # inputs of one shape are held (copied) until STACK_BYTES of them are
+    # waiting, then checked together: the plain version treats every block
+    # on its own, and one call on the stack costs about one call's latency
+    STACK_BYTES = 2 * 2**30
+
     def __init__(self):
         self.rows = {}
         self.seconds = 0.0
         self.checked = 0
+        self.pending = {}
 
     def __call__(self, A, d_k, inv_k):
         import torch
+        from ipopt_torch.linalg import block_ldlt_inv as k2
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         self.checked += 1
-        self._check(A, d_k, inv_k)
+        if A.shape[-1] > k2.PANEL:
+            buf = self.pending.setdefault(tuple(A.shape), [])
+            buf.append((A.clone(), d_k.clone(), inv_k.clone()))
+            if len(buf) * 2 * A.numel() * A.element_size() >= self.STACK_BYTES:
+                self._flush(tuple(A.shape))
         torch.cuda.synchronize()
         self.seconds += time.perf_counter() - t0
 
-    def _check(self, A, d_k, inv_k):
+    def flush(self):
+        """Check every input still waiting."""
+        import torch
+        t0 = time.perf_counter()
+        for shape in list(self.pending):
+            self._flush(shape)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+
+    def _flush(self, shape):
+        import torch
+        buf = self.pending.pop(shape)
+        self._check(*(torch.cat(x) for x in zip(*buf)), nb=shape[0], inputs=len(buf))
+
+    def _check(self, A, d_k, inv_k, nb, inputs):
         import torch
         from ipopt_torch.linalg import block_ldlt_inv as k2
         from ipopt_torch.linalg.block_tridiag import _block_inertia_counts
         b = A.shape[-1]
-        if b <= k2.PANEL:
-            return
         eps = torch.finfo(A.dtype).eps
         d_p, inv_p = k2.block_ldlt_inv_plain(A)
         pattern_ok = (torch.equal(torch.isfinite(inv_k), torch.isfinite(inv_p))
@@ -1034,11 +1127,11 @@ class MittK2Check:
 
         fwd_ok = within(inv_k, inv_p, fin, limit)
         out = ~fwd_ok
-        r = self.rows.setdefault((b, A.shape[0]), dict(
+        r = self.rows.setdefault((b, nb), dict(
             inputs=0, blocks=0, forward=0, backward_only=0, failed=0,
             plain_orders_apart=0, inertia_differs=0, worst_backward_ratio=0.0,
             worst_backward_error=0.0, plain_worst_backward_error=0.0, pattern_ok=True))
-        r["inputs"] += 1
+        r["inputs"] += inputs
         r["blocks"] += A.shape[0]
         r["forward"] += int(fwd_ok.sum())
         if bool(out.any()):
@@ -1064,6 +1157,7 @@ class MittK2Check:
         r["pattern_ok"] = r["pattern_ok"] and pattern_ok
 
     def report(self, path):
+        self.flush()
         bad = []
         for (b, nb), r in sorted(self.rows.items(), key=lambda kv: (-kv[0][0], -kv[0][1])):
             log(f"K2 on the {path} path, ({nb}, {b}, {b}): {r['inputs']} inputs, "
@@ -1178,6 +1272,7 @@ def mittelmann_path(dev, opts, card):
     try:
         res = ipopt_torch.solve(cnlp, device=dev, intermediate_callback=count_iterations,
                                 **bopts)
+        check.flush()
         torch.cuda.synchronize()
     finally:
         block_tridiag.block_ldlt_inv, step_mod.solve_any = kernel, solve_any
@@ -1686,12 +1781,14 @@ def scen_infeasible(S, ns=3):
         g_L=np.zeros((S, 2)), g_U=np.zeros((S, 2)))
 
 
-def _card_vs_cpu(path, build, dev, kw, rtol=1e-9, status=0):
+def _card_vs_cpu(path, build, dev, kw, rtol=1e-9, status=0, ref=None):
     """Solve ``build()`` on the card and on the CPU; held: equal (status,
     iterations, factorizations, restorations), the card's status equal to
     ``status``, and the objectives to ``rtol`` (not held where ``rtol`` is
-    None: the objective of a locally infeasible end means nothing).
-    Returns the card's (status, iterations, factorizations, restorations)."""
+    None: the objective of a locally infeasible end means nothing); with
+    ``ref``, the reference's (status, iterations, objective), the card's
+    too (objective to 1e-9).  Returns the card's (status, iterations,
+    factorizations, restorations)."""
     import ipopt_torch
     rs = [ipopt_torch.solve(build(), device=d, **kw) for d in (dev, "cpu")]
     rows = [(int(r.status), int(r.iter_count), int(r.counters.n_factorizations),
@@ -1703,6 +1800,11 @@ def _card_vs_cpu(path, build, dev, kw, rtol=1e-9, status=0):
         + (f"held to {rtol:g})" if rtol is not None else "not held)"))
     if rows[0] != rows[1] or rows[0][0] != status or (rtol is not None and rel > rtol):
         raise SystemExit(f"{path}: the card and the CPU disagree")
+    if ref is not None:
+        rel_ref = abs(float(rs[0].obj) - ref[2]) / abs(ref[2])
+        log(f"{path}: reference {ref}, rel diff {rel_ref:.2e} (tol 1e-9)")
+        if rows[0][:2] != tuple(ref[:2]) or rel_ref > 1e-9:
+            raise SystemExit(f"{path}: the card differs from the reference")
     return rows[0]
 
 
@@ -2007,6 +2109,336 @@ def slice_f_phases(dev, opts, card, nlp_b, family, exact_ms):
     return dict(f1=f1, f2=f2, f3=f3, f4=f4)
 
 
+# ---------------------------------------------------------------------------
+# Slice G: the nested-dissection multifrontal backend (K1 on every level's
+# fronts), then the matrix-free, inexact and penalty step paths
+# ---------------------------------------------------------------------------
+
+MF = dict(linear_solver="multifrontal")
+# G1: the 3-D distributed control (modellib.mittelmann_dist_control_3d) at
+# N = 24: 27,648 variables, 13,824 equalities, 41,472 KKT unknowns in 15
+# tree levels.  N = 16 is held against the reference's values
+# (tests/torch_cases.py "nd3d_16", tools/torch_reference_values.py: the
+# reference on the CPU at the options of bench.py:74-80): status,
+# iterations, factorizations, objective; N = 10 card against CPU.
+ND_N, ND_REF_N, ND_CPU_N = 24, 16, 10
+ND16_REF = (0, 12, 24, 0.9916830657442102)
+# G2: K1 at the widest fronts of N = 32 (the top three levels' (n_d, p))
+ND32_STACKS = ((1, 3070), (2, 1417), (4, 1132))
+# G3: the 2-D control at N = 30 on the multifrontal backend (tests/
+# torch_cases.py "nd_mitt30"): it ends at another point than the banded
+# backend's (MITT30_REF), 5.0e-7 apart in the objective, in the reference too
+MITT30_ND_REF = (0, 25, 73, 0.07666695142007919)
+# G4: the reference's (status, iterations, objective) of hs071 under each
+# step path (tests/torch_cases.py, tools/torch_reference_values.py), and
+# (status, iterations, factorizations, restorations, objective) of
+# cg-penalty on luksan_vlcek1(4096, 32) ("lv1_4096_cgpen")
+G4_HS071 = {"minres": (dict(linear_solver="minres", tol=1e-7),
+                       (0, 9, 17.014017158377293)),
+            "inexact": (dict(inexact_algorithm=True, max_iter=300),
+                        (0, 8, 17.014017145179032)),
+            "cg-penalty": (dict(line_search_method="cg-penalty", max_iter=300),
+                           (0, 8, 17.014017145179167)),
+            "penalty": (dict(line_search_method="penalty", max_iter=300),
+                        (0, 7, 17.014017145176478))}
+LV1_CGPEN_REF = (0, 35, 572, 14, 6.23245863243962)
+
+
+def _torch_cases():
+    """tests/torch_cases.py of this checkout (problem builders; it imports
+    neither package at its top)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_cases
+    return torch_cases
+
+
+def check_k1_levels(dev, inputs, levels, path, card):
+    """K1 on every input of a multifrontal solve (the eliminated blocks of
+    each level of each factorization), bit-equal to its plain version; then
+    per level, on the first factorization's inputs: K1's time per launch
+    (CUDA events), the plain version's, torch.linalg.ldl_factor_ex's
+    (Bunch-Kaufman: another function, a yardstick) and the bound."""
+    import torch
+    from ipopt_torch.linalg import block_ldlt as bl
+    max_abs_err = 0.0
+    for A in inputs:
+        L_k, d_k = bl.block_ldlt(A)
+        L_p, d_p = bl.block_ldlt_plain(A)
+        if not (same_values(L_k, L_p) and same_values(d_k, d_p)):
+            raise SystemExit(f"K1 on the {path} path: an input of {tuple(A.shape)} where "
+                             f"the kernel differs from its plain version")
+        for x, y in ((L_k, L_p), (d_k, d_p)):
+            fin = torch.isfinite(x) & torch.isfinite(y)
+            max_abs_err = max(max_abs_err, float(torch.where(fin, x - y, 0.0).abs().max()))
+        del L_k, d_k, L_p, d_p
+    rows = []
+    for A in inputs[:levels]:
+        nb, b = A.shape[0], A.shape[-1]
+        big = b > 512
+        ms = time_cuda(lambda: bl.block_ldlt(A), reps=2 if big else 10, warmup=1)
+        plain_ms = time_cuda(lambda: bl.block_ldlt_plain(A), reps=1, warmup=1)
+        ldl_ms = time_cuda(lambda: torch.linalg.ldl_factor_ex(A), reps=1, warmup=1)
+        bound_ms, bound_by, _, _ = k1_bound(nb, b, A.dtype)
+        pl = bl.plan(nb, b, A.dtype)
+        rows.append(dict(shape=[nb, b, b], variant=pl.variant, ms=ms, plain_ms=plain_ms,
+                         library_ms=ldl_ms, bound_ms=bound_ms, bound_by=bound_by))
+        log(f"K1 on the {path} path, level ({nb}, {b}, {b}) plan {pl.variant}: "
+            f"{ms:.4f} ms per launch (CUDA events), bound {bound_ms:.6f} ms "
+            f"({bound_by}), {ms / bound_ms:.1f}x; plain {plain_ms:.4f} ms; "
+            f"torch.linalg.ldl_factor_ex {ldl_ms:.4f} ms")
+    per_fac = sum(r["ms"] for r in rows)
+    log(f"K1 on the {path} path: {len(inputs)} inputs, each bit-equal to the plain "
+        f"version; {per_fac:.3f} ms per factorization over its {levels} levels "
+        f"(bound {sum(r['bound_ms'] for r in rows):.6f} ms); card {card}")
+    return dict(levels=rows, ms_per_factorization=per_fac, max_abs_err=max_abs_err,
+                inputs=len(inputs))
+
+
+def multifrontal_path(dev, opts, card):
+    """G1: solve(mittelmann_dist_control_3d(24), linear_solver=
+    "multifrontal") on the card: set-up, cold, warm with the counts from 0
+    (status 0; K1 once per level of every factorization, K2 never) and K1
+    timed inside it per launch; K1 on every input of the cold solve (the
+    same factorizations as the warm one's) against its plain version and
+    relaunched per level; N = 16 against the reference's values; N = 10
+    card against CPU."""
+    import torch
+    import ipopt_torch
+    from ipopt_torch import modellib
+    from ipopt_torch.linalg import nested_dissection as nd
+    from ipopt_torch.profile_main import capture_k1_inputs, time_k1_calls
+    from ipopt_torch.sparse import canonicalize_sparse
+    kw = dict(opts, **MF)
+    t0 = time.perf_counter()
+    cnlp = canonicalize_sparse(modellib.mittelmann_dist_control_3d(ND_N),
+                               ipopt_torch.Options(**kw), device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    info = cnlp.chain
+    fronts_gb = info.total_slots * 8 / 1e9
+    log(f"G1 set-up: canonicalize_sparse(mittelmann_dist_control_3d({ND_N})) "
+        f"{setup_s:.3f} s: n = {info.n}, m = {info.me + info.mi}, KKT {info.N}, "
+        f"{len(info.levels)} levels (n_d, p, u) "
+        f"{[(lv.n_nodes, lv.p, lv.u) for lv in info.levels]}, fronts {fronts_gb:.3f} GB")
+    from ipopt_torch.linalg import block_ldlt as bl
+    from ipopt_torch.linalg import block_ldlt_inv as k2
+    # the cold solve also captures every K1 input (checked after the warm one)
+    t0 = time.perf_counter()
+    results = []
+    inputs = capture_k1_inputs(
+        lambda: results.append(ipopt_torch.solve(cnlp, device=dev, **kw)))
+    cold = results[0]
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    bl.block_ldlt.launches = 0
+    k2.block_ldlt_inv.launches = 0
+    nd.nd_factorize.calls = nd.nd_factorize.levels = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # K1 timed inside the warm solve by CUDA events around each launch
+    res, k1_calls = time_k1_calls(lambda: ipopt_torch.solve(cnlp, device=dev, **kw))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_n, k2_n = bl.block_ldlt.launches, k2.block_ldlt_inv.launches
+    want, n_fac = nd.nd_factorize.levels, nd.nd_factorize.calls
+    # less the captured inputs, which the solve does not hold
+    held = sum(A.element_size() * A.numel() for A in inputs)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    got = (int(res.status), int(res.iter_count), int(res.counters.n_factorizations),
+           int(res.restoration_count))
+    if int(cold.iter_count) != got[1]:
+        raise SystemExit("G1: the cold and the warm solves differ")
+    log(f"G1 multifrontal: solve(mittelmann_dist_control_3d({ND_N})) float64: "
+        f"(status, iterations, factorizations, restorations) {got}, objective "
+        f"{float(res.obj)!r}; warm solve {wall:.3f} s "
+        f"({wall / max(got[1], 1) * 1e3:.1f} ms/iteration), cold {cold_s:.3f} s, "
+        f"set-up {setup_s:.3f} s, peak device memory {peak:.3f} GiB; K1 launches "
+        f"{k1_n} (levels x factorizations: {want} over {n_fac} "
+        f"factorizations), K2 launches {k2_n}; card {card}")
+    if got[0] != 0 or k2_n or k1_n != want or k1_n == 0:
+        raise SystemExit(f"G1: status {got[0]}, K1 launches {k1_n} (want {want}), "
+                         f"K2 launches {k2_n}")
+    if len(inputs) != want:
+        raise SystemExit(f"G1: {len(inputs)} K1 inputs in the cold solve, {want} "
+                         f"launches in the warm one")
+    k1 = check_k1_levels(dev, inputs, len(info.levels), "G1 multifrontal", card)
+    del inputs
+    k1_solve_ms = sum(ms for _, ms in k1_calls)
+    per_level = {}
+    for shape, ms in k1_calls:
+        per_level.setdefault(str(list(shape)), []).append(ms)
+    per_level = {k: sum(v) / len(v) for k, v in per_level.items()}
+    log(f"G1: K1 {k1_solve_ms / 1e3:.3f} s of the {wall:.3f} s warm solve "
+        f"({k1_solve_ms / 1e3 / wall:.3f} of its wall; CUDA events around its "
+        f"{len(k1_calls)} launches inside the solve); mean ms per launch by level "
+        f"{ {k: round(v, 4) for k, v in per_level.items()} }; card {card}")
+    out = dict(n=info.n, kkt=info.N, levels=[list(lv_[:3]) for lv_ in info.levels],
+               fronts_gb=fronts_gb, status=got[0], iterations=got[1],
+               factorizations=got[2], restorations=got[3], setup_s=setup_s,
+               wall_s=wall, cold_s=cold_s, peak_gib=peak,
+               ms_per_iteration=wall / max(got[1], 1) * 1e3, k1_launches=k1_n,
+               k1_in_solve_ms=k1_solve_ms, k1_in_solve_ms_per_level=per_level,
+               k1_share_of_wall=k1_solve_ms / 1e3 / wall,
+               k1=k1)
+
+    r16 = ipopt_torch.solve(modellib.mittelmann_dist_control_3d(ND_REF_N), device=dev, **kw)
+    got16 = (int(r16.status), int(r16.iter_count), int(r16.counters.n_factorizations))
+    rel16 = abs(float(r16.obj) - ND16_REF[3]) / abs(ND16_REF[3])
+    log(f"G1 N = {ND_REF_N}: (status, iterations, factorizations) {got16}, objective "
+        f"{float(r16.obj)!r}; reference {ND16_REF}, rel diff {rel16:.2e} (tol 1e-9)")
+    if got16 != ND16_REF[:3] or rel16 > 1e-9:
+        raise SystemExit(f"G1: N = {ND_REF_N} differs from the reference")
+    _card_vs_cpu(f"G1 N = {ND_CPU_N}", lambda: modellib.mittelmann_dist_control_3d(ND_CPU_N),
+                 dev, kw)
+    return out
+
+
+def k1_wide_stacks(dev, card):
+    """G2: K1 on seeded stacks at the widest fronts of N = 32, bit-equal to
+    its plain version and timed beside its bound, the plain version and
+    torch.linalg.ldl_factor_ex."""
+    import torch
+    from ipopt_torch.linalg import block_ldlt as bl
+    rng = np.random.default_rng(32)
+    rows = []
+    for nb, b in ND32_STACKS:
+        A = k1_blocks(rng, nb, b, torch.float64).to(dev)
+        L_k, d_k = bl.block_ldlt(A)
+        L_p, d_p = bl.block_ldlt_plain(A)
+        ok = same_values(L_k, L_p) and same_values(d_k, d_p)
+        del L_k, d_k, L_p, d_p
+        # timed without the inf block, whose CTA takes the library division
+        At = A[:-1] if nb > 1 else A
+        nb = At.shape[0]
+        ms = time_cuda(lambda: bl.block_ldlt(At), reps=1, warmup=0)
+        plain_ms = time_cuda(lambda: bl.block_ldlt_plain(At), reps=1, warmup=0)
+        ldl_ms = time_cuda(lambda: torch.linalg.ldl_factor_ex(At), reps=1, warmup=0)
+        bound_ms, bound_by, _, _ = k1_bound(nb, b, torch.float64)
+        pl = bl.plan(nb, b, torch.float64)
+        log(f"G2 K1 seeded ({nb}, {b}, {b}) float64 plan {pl.variant}: bit-equal to "
+            f"the plain version {ok}; {ms:.3f} ms per launch (CUDA events), bound "
+            f"{bound_ms:.6f} ms ({bound_by}), {ms / bound_ms:.0f}x; plain "
+            f"{plain_ms:.3f} ms; torch.linalg.ldl_factor_ex {ldl_ms:.3f} ms; card {card}")
+        if not ok:
+            raise SystemExit(f"G2: K1 differs from its plain version at ({nb}, {b})")
+        rows.append(dict(shape=[nb, b, b], variant=pl.variant, ms=ms, plain_ms=plain_ms,
+                         library_ms=ldl_ms, bound_ms=bound_ms, bound_by=bound_by))
+    return rows
+
+
+def multifrontal_checks(dev, opts, card):
+    """G3: the multifrontal restoration (tests/test_nested_dissection.py:
+    108-121's problem, and an infeasible one that runs the restoration on
+    this backend), card against CPU; the 2-D control at N = 30 on the
+    multifrontal and the banded backends, each against the reference's
+    values on that backend (the two end 5.0e-7 apart in the objective, in
+    the reference too)."""
+    import ipopt_torch
+    from ipopt_torch import modellib
+    from ipopt_torch.linalg import block_ldlt as bl
+    torch_cases = _torch_cases()
+    kw = dict(opts, **MF)
+    bl.block_ldlt.launches = 0
+    _card_vs_cpu("G3 multifrontal, the restoration analysis case",
+                 lambda: torch_cases.build("nd_resto", "port"), dev, kw)
+    got = _card_vs_cpu("G3 multifrontal restoration (infeasible)",
+                       lambda: torch_cases.build("infeasible", "port"), dev, kw,
+                       rtol=None, status=6)
+    if got[3] == 0 or bl.block_ldlt.launches == 0:
+        raise SystemExit("G3: no restoration, or K1 not launched")
+    rows = {}
+    for name, solver, ref in (("multifrontal", "multifrontal", MITT30_ND_REF),
+                              ("banded-bcr", "banded-bcr", MITT30_REF)):
+        r = ipopt_torch.solve(modellib.mittelmann_dist_control(30), device=dev,
+                              **dict(opts, linear_solver=solver))
+        rows[name] = (int(r.status), int(r.iter_count), int(r.counters.n_factorizations),
+                      float(r.obj))
+        rel = abs(rows[name][3] - ref[3]) / abs(ref[3])
+        log(f"G3 mittelmann_dist_control(30) {name}: (status, iterations, "
+            f"factorizations) {rows[name][:3]}, objective {rows[name][3]!r}; "
+            f"reference {ref}, rel diff {rel:.2e} (tol 1e-9)")
+        if rows[name][:3] != ref[:3] or rel > 1e-9:
+            raise SystemExit(f"G3: mittelmann_dist_control(30) {name} differs from the "
+                             f"reference")
+    diff = abs(rows["multifrontal"][3] - rows["banded-bcr"][3])
+    log(f"G3 mittelmann_dist_control(30): the two backends end {diff:.3e} apart in "
+        f"the objective, as the reference's do; card {card}")
+    return dict(infeasible=got, mitt30=rows, mitt30_diff=diff)
+
+
+def step_paths(dev, opts, card):
+    """G4: hs071 under minres, the inexact algorithm, cg-penalty and penalty
+    (card against CPU and against the reference's values); the 1-D control
+    of tests/test_inexact.py:43-71 with the inexact algorithm (card against
+    CPU); cg-penalty on luksan_vlcek1(4096, 32), cold then warm with its K2
+    launches counted (restorations included), and K2 held against its plain
+    version on every input of the cold solve."""
+    import torch
+    import ipopt_torch
+    from ipopt_torch import modellib
+    from ipopt_torch.linalg import block_ldlt as bl
+    from ipopt_torch.linalg import block_ldlt_inv as k2
+    from ipopt_torch.profile_main import capture_k2_inputs
+    torch_cases = _torch_cases()
+    out = {}
+    for name, (kw, ref) in G4_HS071.items():
+        out[name] = _card_vs_cpu(f"G4 hs071 {name}", modellib.hs071, dev,
+                                 dict(kw, print_level=0), ref=ref)
+    _card_vs_cpu("G4 the 1-D control, inexact", lambda: torch_cases.build("control_1d", "port"),
+                 dev, dict(print_level=0, inexact_algorithm=True, max_iter=300, tol=1e-7))
+    kw = dict(opts, line_search_method="cg-penalty")
+    cnlp = ipopt_torch.canonicalize_chained(modellib.luksan_vlcek1(LV1_N, LV1_V),
+                                            ipopt_torch.Options(**kw), device=dev)
+    # the cold solve also captures every K2 input (checked after the warm one)
+    results = []
+    inputs = capture_k2_inputs(
+        lambda: results.append(ipopt_torch.solve(cnlp, device=dev, **kw)))
+    bl.block_ldlt.launches = 0
+    k2.block_ldlt_inv.launches = 0
+    t0 = time.perf_counter()
+    res = ipopt_torch.solve(cnlp, device=dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_n, k2_n = bl.block_ldlt.launches, k2.block_ldlt_inv.launches
+    got = (int(res.status), int(res.iter_count), int(res.counters.n_factorizations),
+           int(res.restoration_count))
+    # every factorization of the main chain and of the restoration's has
+    # LV1_K2_PER_FACTORIZATION levels
+    log(f"G4 cg-penalty chained: solve(luksan_vlcek1({LV1_N}, {LV1_V})) (status, "
+        f"iterations, factorizations, restorations) {got}, objective "
+        f"{float(res.obj)!r}; reference {LV1_CGPEN_REF}; warm {wall:.3f} s "
+        f"({wall / max(got[1], 1) * 1e3:.1f} ms/iteration); K2 launches {k2_n} "
+        f"({k2_n // LV1_K2_PER_FACTORIZATION} factorizations of "
+        f"{LV1_K2_PER_FACTORIZATION} levels, restorations' included), K1 {k1_n}; "
+        f"card {card}")
+    rel = abs(float(res.obj) - LV1_CGPEN_REF[4]) / LV1_CGPEN_REF[4]
+    if (got != LV1_CGPEN_REF[:4] or rel > 1e-9 or k1_n
+            or k2_n < LV1_K2_PER_FACTORIZATION * got[2]
+            or k2_n % LV1_K2_PER_FACTORIZATION or len(inputs) != k2_n
+            or int(results[0].iter_count) != got[1]):
+        raise SystemExit(f"G4: cg-penalty on the chained path: {got}, K2 {k2_n}, "
+                         f"K1 {k1_n}, {len(inputs)} inputs in the cold solve")
+    k2_check = check_k2_stacked(inputs, "G4 cg-penalty chained", card)
+    del inputs
+    out["cg_penalty_chained"] = dict(status=got[0], iterations=got[1],
+                                     factorizations=got[2], restorations=got[3],
+                                     wall_s=wall, k2_launches=k2_n, k2=k2_check)
+    return out
+
+
+def slice_g_phases(dev, opts, card):
+    """G1-G4; returns their numbers for the kernels line."""
+    phase("G1 multifrontal, mittelmann_dist_control_3d(24)")
+    g1 = multifrontal_path(dev, opts, card)
+    phase("G2 K1 at the widest fronts of N = 32")
+    g2 = k1_wide_stacks(dev, card)
+    phase("G3 multifrontal restoration and backends")
+    g3 = multifrontal_checks(dev, opts, card)
+    phase("G4 minres, inexact, penalty and cg-penalty")
+    g4 = step_paths(dev, opts, card)
+    return dict(g1=g1, g2=g2, g3=g3, g4=g4)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2172,12 +2604,16 @@ def main():
     for tag in ("f1", "f2"):
         paths_k1 = f"{tag}_arrow_sqp_{f[tag]['S']}_{f[tag]['ns']}"
         f.setdefault("k1_launches_per_path", {})[paths_k1] = f[tag]["k1_launches"]
+    g = slice_g_phases(dev, opts, card)
     f["k1_launches_per_path"].update(
+        g1_multifrontal_3d_24=g["g1"]["k1_launches"],
         f3_arrow_restoration_1024=f["f3"][1024]["k1_launches"],
         f4_lbfgs_dense_hs071_512=f["f4"]["dense_hs071_512"]["k1_launches"],
         f4_lbfgs_arrow_sqp_8192_30=f["f4"]["arrow_sqp_8192_30"]["k1_launches"])
     paths.update(f4_lbfgs_chained_lv1_4096_32=f["f4"]["chained_lv1_4096_32"]["k2_launches"],
-                 f4_lbfgs_banded_lv1_flat_1e5=f["f4"]["banded_lv1_flat_1e5"]["k2_launches"])
+                 f4_lbfgs_banded_lv1_flat_1e5=f["f4"]["banded_lv1_flat_1e5"]["k2_launches"],
+                 g4_cg_penalty_chained_lv1_4096_32=(
+                     g["g4"]["cg_penalty_chained"]["k2_launches"]))
 
     # 10. kernels line, 11. result line
     phase("kernels line")
@@ -2188,7 +2624,8 @@ def main():
         slice_e=dict(e2=dict(e2, k2=e2_k2), e3=dict(e3, k2=e3_k2), e4=e4),
         seeded_ms=k2_stats["seeded_ms"], seeded_max_abs_err=k2_stats["seeded_max_abs_err"],
         device_memory_variant=k2_stats["device_memory_variant"],
-        banded_stacks=k2_stats["banded_stacks"])
+        banded_stacks=k2_stats["banded_stacks"],
+        slice_g=dict(cg_penalty_chained=g["g4"]["cg_penalty_chained"]))
     k1_entry = dict(k1_stats)
     k1_entry["library_ms"] = k1_entry.pop("ldl_factor_ms")
     k1_entry["launches_per_path"] = {"hs071_512": launches, **{
@@ -2196,6 +2633,7 @@ def main():
         **f.pop("k1_launches_per_path")}
     k1_entry["slice_e"] = e1
     k1_entry["slice_f"] = f
+    k1_entry["slice_g"] = dict(multifrontal=g["g1"], wide_fronts=g["g2"])
     print(json.dumps({"kernels": [{
         "name": "block_ldlt", "route": "cuda",
         "source": "ipopt_torch/csrc/block_ldlt.cu",

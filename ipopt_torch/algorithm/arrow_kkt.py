@@ -29,7 +29,7 @@ from ..kkt import sigmas
 from ..linalg.ldlt import ldlt, ldlt_solve, LDLTResult
 from ..linalg.block_tridiag import batched_block_ldlt_inv
 from ..parallel.scenario import ArrowInfo, scatter_rows
-from .step import refine
+from .step import refine, perturbation_start
 
 
 def _mv(M, x):
@@ -176,14 +176,16 @@ class ArrowFactorResult(NamedTuple):
 
 
 def arrow_factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate,
-                        Jblocks, Wblocks, mu, delta_w_last) -> ArrowFactorResult:
+                        Jblocks, Wblocks, mu, delta_w_last,
+                        delta_cd_override=None) -> ArrowFactorResult:
     """Inertia-corrected arrow factorization with the reference's schedule
     (``arrow_kkt.py:204-267``): always dual-regularized (delta_c floored at
     jacobian_regularization_value, escalating to at most 1e-4 on repeated
     singularity), as the chained backend.  A lane that is done keeps its
     factorization, matrix and deltas."""
     exp_pos, exp_neg = expected_inertia_arrow(nlp)
-    base_cd = (opts.jacobian_regularization_value
+    base_cd = (delta_cd_override if delta_cd_override is not None
+               else opts.jacobian_regularization_value
                * mu ** opts.jacobian_regularization_exponent)
     delta_cd = torch.clamp(base_cd, min=opts.jacobian_regularization_value)
 
@@ -207,15 +209,7 @@ def arrow_factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate,
         new_dc = torch.where(was_singular,
                              torch.clamp(torch.maximum(dcv * 100.0, delta_cd),
                                          max=1e-4), dcv)
-        start_val = torch.where(
-            delta_w_last == 0,
-            torch.full_like(delta_w_last, opts.first_hessian_perturbation),
-            torch.clamp(delta_w_last * opts.perturb_dec_fact,
-                        min=opts.min_hessian_perturbation))
-        inc_fact = torch.where(
-            delta_w_last == 0,
-            torch.full_like(delta_w_last, opts.perturb_inc_fact_first),
-            torch.full_like(delta_w_last, opts.perturb_inc_fact))
+        start_val, inc_fact = perturbation_start(opts, delta_w_last)
         bumped = torch.where(dxv == 0, start_val, dxv * inc_fact)
         new_dx = torch.where(only_dc, dxv, bumped)
         new_gave_up = new_dx > opts.max_hessian_perturbation

@@ -30,7 +30,7 @@ from ..options import Options
 from ..kkt import sigmas
 from ..linalg.block_tridiag import BTDMatrix, BCRFactor, bcr_factorize, bcr_solve
 from ..chained import scatter_rows
-from .step import refine
+from .step import refine, perturbation_start
 
 
 def _eye(k, like):
@@ -115,7 +115,8 @@ class ChainFactorResult(NamedTuple):
 
 
 def chained_factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate,
-                          AB, Wblocks, mu, delta_w_last) -> ChainFactorResult:
+                          AB, Wblocks, mu, delta_w_last,
+                          delta_cd_override=None) -> ChainFactorResult:
     """Inertia-corrected BTD factorization with the reference's own retry
     schedule (``chained_kkt.py:163-260``).  Unpivoted block elimination needs
     every diagonal block invertible, which a full-rank Jacobian does not
@@ -124,7 +125,8 @@ def chained_factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate,
     every lane with one K2 launch per BCR level; a lane that is done keeps
     its factorization, matrix and deltas."""
     exp_pos, exp_neg = expected_inertia(nlp)
-    base_cd = (opts.jacobian_regularization_value
+    base_cd = (delta_cd_override if delta_cd_override is not None
+               else opts.jacobian_regularization_value
                * mu ** opts.jacobian_regularization_exponent)
     delta_cd = torch.clamp(base_cd, min=opts.jacobian_regularization_value)
 
@@ -149,15 +151,7 @@ def chained_factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate,
         new_dc = torch.where(was_singular,
                              torch.clamp(torch.maximum(dcv * 100.0, delta_cd),
                                          max=1e-4), dcv)
-        start_val = torch.where(
-            delta_w_last == 0,
-            torch.full_like(delta_w_last, opts.first_hessian_perturbation),
-            torch.clamp(delta_w_last * opts.perturb_dec_fact,
-                        min=opts.min_hessian_perturbation))
-        inc_fact = torch.where(
-            delta_w_last == 0,
-            torch.full_like(delta_w_last, opts.perturb_inc_fact_first),
-            torch.full_like(delta_w_last, opts.perturb_inc_fact))
+        start_val, inc_fact = perturbation_start(opts, delta_w_last)
         bumped = torch.where(dxv == 0, start_val, dxv * inc_fact)
         new_dx = torch.where(only_dc, dxv, bumped)
         new_gave_up = new_dx > opts.max_hessian_perturbation

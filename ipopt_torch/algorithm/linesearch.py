@@ -1,4 +1,5 @@
-"""Filter line search: BacktrackingLineSearch + FilterLSAcceptor, over a batch.
+"""Filter line search: BacktrackingLineSearch + FilterLSAcceptor (or the
+l1-penalty acceptor, PenaltyLSAcceptor), over a batch.
 
 Port of ``ipopt_tpu/algorithm/linesearch.py`` (Waechter-Biegler Algorithm A;
 ``IpFilterLSAcceptor.cpp``, ``IpBacktrackingLineSearch.cpp``): alpha_min by
@@ -85,6 +86,7 @@ class LineSearchResult(NamedTuple):
     n_evals: Any
     n_soc_rounds: Any
     last_rej_filter: Any
+    penalty_nu: Any = None  # the l1-penalty acceptor's parameter (B,)
 
 
 def _theta(c, d, s, norm_type: str = "1-norm"):
@@ -158,12 +160,15 @@ class _Carry(NamedTuple):
 
 def line_search(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
                 sr: StepResult, mu, tau, fs: FilterState,
-                theta_min, theta_max, corr=None) -> LineSearchResult:
+                theta_min, theta_max, corr=None, penalty_nu=None) -> LineSearchResult:
     """One backtracking search per lane.  ``corr`` is a corrector's pre-trial
     (FilterLSAcceptor::TryCorrector, IpFilterLSAcceptor.cpp:655-880): a
     dict with ``trial``, ``alpha_pr``, ``alpha_du`` and ``active``.  It is
     tested first, at the uncorrected first trial's step size; a lane that
-    accepts it does no backtracking."""
+    accepts it does no backtracking.  With ``line_search_method="penalty"``
+    the l1-penalty acceptor (PenaltyLSAcceptor, ``linesearch.py:219-240``)
+    takes the filter's place, its parameter ``penalty_nu`` (B,) carried by
+    the solver; "none" is the filter, as in the reference."""
     dtype, dev = it.x.dtype, it.x.device
     B = it.x.shape[0]
     step = sr.step
@@ -193,8 +198,25 @@ def line_search(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
         return descent & (alpha * safe_mg ** opts.s_phi
                           > opts.delta * theta ** opts.s_theta)
 
+    use_penalty = opts.line_search_method == "penalty"
+    if use_penalty:
+        # nu >= |grad phi . d| / ((1 - rho) theta) + 1, rho = 0.1; Armijo on
+        # phi + nu theta with the model decrease grad phi . d - nu theta
+        nu_req = torch.where(theta > 0, gphi_dx.abs()
+                             / ((1.0 - 0.1) * torch.clamp(theta, min=1e-30)),
+                             torch.zeros_like(theta))
+        nu = torch.maximum(penalty_nu, nu_req + 1.0)
+    else:
+        nu = penalty_nu
+
     def acceptable3(alpha, theta_t, phi_t):
         """(accept, is_ftype, rejected_by_filter) per lane."""
+        if use_penalty:
+            lhs = (phi_t + nu * theta_t) - (phi + nu * theta)
+            accept = lhs <= opts.eta_phi * alpha * torch.clamp(gphi_dx - nu * theta,
+                                                               max=0.0)
+            # no filter augmentation, never a filter rejection
+            return accept, ~false, false
         in_filter = filter_acceptable(fs, theta_t, phi_t)
         to_filter = in_filter & (theta_t <= theta_max)
         armijo = phi_t <= phi + opts.eta_phi * alpha * gphi_dx
@@ -319,7 +341,7 @@ def line_search(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
         first_theta=f_th, first_phi=f_ph,
         n_evals=cy.k + cy.n_soc_rounds + (0 if corr is None else 1),
         n_soc_rounds=cy.n_soc_rounds,
-        last_rej_filter=cy.rej_filter)
+        last_rej_filter=cy.rej_filter, penalty_nu=nu)
 
 
 def compute_alpha_for_y(nlp: CanonicalNLP, opts: Options, it: Iterate,

@@ -29,7 +29,7 @@ from ..options import Options
 from ..kkt import Evals, sigmas
 from ..linalg.ldlt import ldlt, ldlt_solve, LDLTResult
 from .quasi_newton import LowRankW
-from .step import refine
+from .step import refine, perturbation_start
 
 
 def _mm(A, B):
@@ -183,15 +183,7 @@ def lowrank_factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate,
         only_dc = was_singular & (delta_c == 0)
         new_delta_c = torch.where(was_singular | (delta_c > 0),
                                   torch.maximum(delta_c, delta_cd), delta_c)
-        start_val = torch.where(
-            delta_w_last == 0,
-            torch.full_like(delta_w_last, opts.first_hessian_perturbation),
-            torch.clamp(delta_w_last * opts.perturb_dec_fact,
-                        min=opts.min_hessian_perturbation))
-        inc_fact = torch.where(
-            delta_w_last == 0,
-            torch.full_like(delta_w_last, opts.perturb_inc_fact_first),
-            torch.full_like(delta_w_last, opts.perturb_inc_fact))
+        start_val, inc_fact = perturbation_start(opts, delta_w_last)
         bumped = torch.where(delta_x == 0, start_val, delta_x * inc_fact)
         new_delta_x = torch.where(only_dc, delta_x, bumped)
         new_gave_up = new_delta_x > opts.max_hessian_perturbation

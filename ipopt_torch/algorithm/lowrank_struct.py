@@ -24,6 +24,7 @@ from ..options import Options
 from .quasi_newton import LowRankW
 from .lowrank_kkt import (lowrank_correction, refine_parts, smw_apply,
                           smw_inertia)
+from .step import perturbation_start
 
 
 class StructLowRankKKT(NamedTuple):
@@ -221,15 +222,7 @@ def lowrank_struct_factorize(nlp: CanonicalNLP, opts: Options, it: Iterate,
         new_dc = torch.where(was_singular,
                              torch.clamp(torch.maximum(dcv * 100.0, delta_cd),
                                          max=1e-4), dcv)
-        start_val = torch.where(
-            delta_w_last == 0,
-            torch.full_like(delta_w_last, opts.first_hessian_perturbation),
-            torch.clamp(delta_w_last * opts.perturb_dec_fact,
-                        min=opts.min_hessian_perturbation))
-        inc_fact = torch.where(
-            delta_w_last == 0,
-            torch.full_like(delta_w_last, opts.perturb_inc_fact_first),
-            torch.full_like(delta_w_last, opts.perturb_inc_fact))
+        start_val, inc_fact = perturbation_start(opts, delta_w_last)
         bumped = torch.where(dxv == 0, start_val, dxv * inc_fact)
         new_dx = torch.where(only_dc, dxv, bumped)
         new_gave_up = new_dx > opts.max_hessian_perturbation

@@ -1,10 +1,13 @@
 """The interior-point driver: IpoptAlgorithm::Optimize, over a batch.
 
 Port of ``ipopt_tpu/algorithm/solver.py`` (``src/Algorithm/IpIpoptAlg.cpp:
-292-417``) with the exact or the limited-memory Hessian and the filter line
-search, on the dense, the chained (block-tridiagonal), the banded (general
-sparsity, ``linear_solver="banded-bcr"``) and the scenario (block-arrow) KKT
-backends:
+292-417``) with the exact or the limited-memory Hessian; the direct step
+with the filter or the l1-penalty line search, the Chen-Goldfarb penalty
+method (``cg_penalty.py``), the matrix-free MINRES step (``matrix_free.py``)
+and the inexact algorithm (``inexact.py``); on the dense, the chained
+(block-tridiagonal), the banded (general sparsity, ``linear_solver=
+"banded-bcr"``), the multifrontal (nested dissection, ``linear_solver=
+"multifrontal"``) and the scenario (block-arrow) KKT backends:
 
     InitializeIterates -> CheckConvergence -> loop {
         UpdateHessian; UpdateBarrierParameter; ComputeSearchDirection;
@@ -36,6 +39,7 @@ from .. import kkt
 from ..kkt import Evals, evaluate, kkt_residuals, optimality_error, slacks
 from ..linalg import ldlt as _ldlt_mod
 from ..linalg.block_tridiag import bcr_factorize
+from ..linalg.nested_dissection import nd_factorize
 from .step import (StepResult, compute_search_direction, compute_hessian,
                    _backend, factorize_any, solve_any, direction_from_parts)
 from .linesearch import (FilterState, filter_init, line_search, filter_reset,
@@ -46,6 +50,8 @@ from .mu import (MuState, mu_init_state, monotone_mu_update_components,
 from .init import default_initialize, warm_start_initialize, least_squares_y
 from .convergence import check_convergence
 from .quasi_newton import LBFGSState, lbfgs_init
+from .cg_penalty import CGState, cg_init
+from .inexact import decomposition_initial_cn
 
 _CONTINUE = int(SolverReturn.CONTINUE)
 
@@ -63,9 +69,9 @@ class UnsupportedOptionError(ValueError):
 # (option, supported values) of the features this port has.
 _SUPPORTED = (
     ("hessian_approximation", ("exact", "limited-memory")),
-    ("linear_solver", ("dense-ldlt", "banded-bcr")),
-    ("inexact_algorithm", (False,)),
-    ("line_search_method", ("filter",)),
+    ("linear_solver", ("dense-ldlt", "banded-bcr", "multifrontal", "minres")),
+    ("inexact_algorithm", (False, True)),
+    ("line_search_method", ("filter", "penalty", "cg-penalty", "none")),
     ("refinement_precision", ("same",)),
     ("factorization_dtype", ("",)),
     ("gradient_approximation", ("exact",)),
@@ -142,17 +148,35 @@ class IPMState(NamedTuple):
     ams: AdaptiveMuState  # the adaptive mu strategy's per-lane carry
     eip_active: Any       # expect_infeasible_problem heuristic still armed
     lbfgs: LBFGSState     # per-lane history (zero width with exact Hessians)
+    penalty_nu: Any       # the l1-penalty acceptor's parameter (and inexact nu)
+    cg: CGState           # the Chen-Goldfarb penalty carry (one slot when off)
+    tr_omega: Any         # the inexact normal step's trust-region factor
+    nu_low: Any           # the inexact flexible penalty's lower parameter
+    inx_cn: Any           # the inexact adaptive decomposition bit, or None
 
 
-def robust_state_init(opts: Options, it: Iterate) -> dict:
+def robust_state_init(opts: Options, it: Iterate, outer: bool = False) -> dict:
     """The filter-reset heuristic's carry, the previous accepted point, the
-    adaptive mu carry, the infeasibility heuristic's flag and a fresh
-    L-BFGS history (a restoration starts its own, ``restoration.py:232-235``)."""
-    B, dev = it.x.shape[0], it.x.device
+    adaptive mu carry, the infeasibility heuristic's flag, a fresh L-BFGS
+    history (a restoration starts its own, ``restoration.py:232-235``) and
+    the penalty methods' carries.  Only the ``outer`` solve starts nu at
+    ``nu_init`` under the inexact algorithm and carries the adaptive
+    decomposition bit; a restoration starts nu at 1 and always decomposes
+    (``restoration.py:242-246``)."""
+    B, dev, dtype = it.x.shape[0], it.x.device, it.x.dtype
     z = torch.zeros((B,), dtype=torch.int64, device=dev)
     hist = (opts.limited_memory_max_history
             if opts.hessian_approximation == "limited-memory" else 0)
+    inexact = outer and opts.inexact_algorithm
+
+    def full(v):
+        return torch.full((B,), v, dtype=dtype, device=dev)
+
     return dict(
+        penalty_nu=full(opts.nu_init if inexact else 1.0),
+        cg=cg_init(opts, B, dtype, dev), tr_omega=full(opts.omega_init),
+        nu_low=full(opts.nu_low_init),
+        inx_cn=decomposition_initial_cn(opts, B, dev) if inexact else None,
         lbfgs=lbfgs_init(B, it.x.shape[1], hist, it.x.dtype, dev,
                          opts.limited_memory_init_val),
         filter_rej_count=z, n_filter_resets=z,
@@ -294,9 +318,12 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
     # --- UpdateHessian (exact or limited-memory, IpIpoptAlg.cpp:351) -------
     W = _update_hessian(nlp, opts, st)
     adaptive = opts.mu_strategy == "adaptive" or opts.mehrotra_algorithm
+    _check_step_combination(opts, adaptive)
     extra_solves = 2 if adaptive else 0
     ams = st.ams
     step_aff = None
+    cg_state, cg_aux, inaux = st.cg, None, None
+    new_tr_omega, nu_low_state = st.tr_omega, st.nu_low
     if adaptive:
         # AdaptiveMuUpdate: one factorization serves the affine solve, the
         # centering solve and the final step, since rhs(mu) = rhs(0) +
@@ -347,7 +374,20 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
                                            dual_inf / s_d, primal_inf, compl_fn,
                                            max_rounds=rounds)
         mu, tau = ms.mu, ms.tau
-        sr = compute_search_direction(nlp, opts, it, ev, W, mu, st.delta_w_last)
+        if opts.inexact_algorithm:
+            from .inexact import inexact_search_direction
+            sr, new_tr_omega, inaux = inexact_search_direction(
+                nlp, opts, it, ev, mu, st.delta_w_last, st.tr_omega, st.penalty_nu,
+                compute_normal=st.inx_cn, last_ls_count=st.last_ls_count)
+        elif opts.linear_solver == "minres":
+            from .matrix_free import mf_search_direction
+            sr = mf_search_direction(nlp, opts, it, ev, mu, st.delta_w_last)
+        elif opts.line_search_method == "cg-penalty":
+            from .cg_penalty import cg_search_direction
+            sr, cg_state, cg_aux = cg_search_direction(nlp, opts, it, ev, W, mu,
+                                                       st.delta_w_last, st.cg)
+        else:
+            sr = compute_search_direction(nlp, opts, it, ev, W, mu, st.delta_w_last)
 
     # --- Tiny-step detection (BacktrackingLineSearch tiny_step_tol) -------
     eps = torch.finfo(dtype).eps
@@ -368,7 +408,9 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
     #     IpFilterLSAcceptor.cpp:655-880): the corrected full step, which the
     #     line search tries first
     corr = None
-    if opts.corrector_type != "none":
+    own_search = opts.inexact_algorithm or opts.line_search_method == "cg-penalty"
+    if (opts.corrector_type != "none" and not own_search
+            and opts.linear_solver != "minres"):
         corr = _corrector(nlp, opts, it, ev, sr, mu, tau, step_aff,
                           ams.free_mode if adaptive else false)
         extra_solves += 1
@@ -377,7 +419,8 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
     fs_in = st.fs
     frc_next = st.filter_rej_count
     nfr_next = st.n_filter_resets
-    if opts.max_filter_resets > 0:
+    filter_ls = not (own_search or opts.line_search_method == "penalty")
+    if opts.max_filter_resets > 0 and filter_ls:
         frc_next = torch.where(st.last_rej_filter, st.filter_rej_count + 1,
                                torch.zeros_like(st.filter_rej_count))
         do_reset = ((frc_next >= opts.filter_reset_trigger)
@@ -388,12 +431,33 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
         nfr_next = st.n_filter_resets + do_reset.long()
 
     # --- Line search ------------------------------------------------------
-    ls = line_search(nlp, opts, it, ev, sr, mu, tau, fs_in, st.theta_min,
-                     st.theta_max, corr=corr)
+    inx_cn_next = st.inx_cn
+    if opts.inexact_algorithm:
+        from .inexact import inexact_line_search, decomposition_next_cn
+        ls, _, nu_low_state = inexact_line_search(nlp, opts, it, ev, sr, mu, tau,
+                                                  st.penalty_nu, st.nu_low, inaux)
+        ls = ls._replace(filter=st.fs)  # the penalty search keeps no filter
+        # the adaptive decomposition bit from the accepted step size, and
+        # forced on when an undecomposed round gave no usable step
+        # (IpInexactSearchDirCalc.cpp:196-200)
+        inx_cn_next = decomposition_next_cn(opts, st.inx_cn, ls.alpha_primal)
+        if inx_cn_next is not None:
+            inx_cn_next = inx_cn_next | sr.failed
+    elif opts.line_search_method == "cg-penalty":
+        from .cg_penalty import cg_line_search
+        ls, cg_state = cg_line_search(nlp, opts, it, ev, sr, mu, tau, cg_state, cg_aux)
+        ls = ls._replace(filter=st.fs,  # the CG method keeps no filter
+                         accepted=ls.accepted & ~_multipliers_diverged(
+                             nlp, opts, it, ev, ls, dual_inf))
+    else:
+        ls = line_search(nlp, opts, it, ev, sr, mu, tau, fs_in, st.theta_min,
+                         st.theta_max, corr=corr, penalty_nu=st.penalty_nu)
     lrf_next = ls.last_rej_filter
 
-    # --- PerformDualStep: y step size per alpha_for_y ---------------------
-    if opts.alpha_for_y not in ("primal", "acceptor"):
+    # --- PerformDualStep: y step size per alpha_for_y (cg-penalty keeps its
+    #     acceptor's rule)
+    if (opts.alpha_for_y not in ("primal", "acceptor")
+            and opts.line_search_method != "cg-penalty"):
         from .linesearch import compute_alpha_for_y
         a_y = col(compute_alpha_for_y(nlp, opts, it, sr.step, ls.trial,
                                       ls.alpha_primal, ls.alpha_dual))
@@ -401,12 +465,32 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
             y_c=it.y_c + a_y * sr.step.y_c, y_d=it.y_d + a_y * sr.step.y_d))
 
     # --- Watchdog: the full fraction-to-boundary trial is the line search's
-    #     first trial, reused as is.
+    #     first trial, reused as is; the inexact and cg-penalty searches keep
+    #     their own acceptors, so that trial is evaluated here, for the lanes
+    #     that need it
     in_wd = st.wd_active & ~sr.failed
     ls_failed = ~(ls.accepted | is_tiny) & ~sr.failed
-    wd_trial = ls.first_trial
-    wd_f, wd_c, wd_d = ls.first_f, ls.first_c, ls.first_d
-    wd_theta, wd_phi = ls.first_theta, ls.first_phi
+    extra_eval = false
+    if not own_search:
+        wd_trial = ls.first_trial
+        wd_f, wd_c, wd_d = ls.first_f, ls.first_c, ls.first_d
+        wd_theta, wd_phi = ls.first_theta, ls.first_phi
+    else:
+        a_pr, a_du = kkt.fraction_to_boundary(nlp, it, sr.step, tau)
+        from .linesearch import _trial_point
+        wd_trial = _trial_point(it, sr.step, a_pr, a_du)
+        extra_eval = in_wd | ls_failed
+        wd_f, wd_c, wd_d = inf, torch.full_like(ev.c, float("inf")), \
+            torch.full_like(ev.d, float("inf"))
+        wd_theta, wd_phi = inf, inf
+        if bool(extra_eval.any()):
+            f_w = nlp.eval_f(wd_trial.x)
+            c_w, d_w = nlp.eval_cd(wd_trial.x)
+            th_w = _theta(c_w, d_w, wd_trial.s, opts.constraint_violation_norm_type)
+            ph_w = kkt.barrier_obj(nlp, wd_trial, f_w, mu, opts.kappa_d)
+            wd_f, wd_c, wd_d, wd_theta, wd_phi = tree_where(
+                extra_eval, (f_w, c_w, d_w, th_w, ph_w),
+                (wd_f, wd_c, wd_d, wd_theta, wd_phi))
     wd_ok = ((wd_theta <= (1.0 - opts.gamma_theta) * st.wd_ref_theta)
              | (wd_phi <= st.wd_ref_phi - opts.gamma_phi * st.wd_ref_theta))
     wd_exhausted = st.wd_trials + 1 >= opts.watchdog_trial_iter_max
@@ -477,9 +561,9 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
     if nlp.struct.me + nlp.struct.mi == 0 or not opts.resto_phase:
         enable_resto = False
     backend = _backend(nlp)
-    if backend == "banded" and nlp.chain.resto is None:
-        # a banded problem without the restoration's analysis (the
-        # restoration NLP itself) cannot nest another restoration
+    if backend in ("banded", "nd") and nlp.chain.resto is None:
+        # a banded or multifrontal problem without the restoration's
+        # analysis (the restoration NLP itself) cannot nest another one
         enable_resto = False
     if enable_resto:
         resto_opts = opts.resto_options()
@@ -500,7 +584,7 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
             elif backend == "arrow":
                 from .arrow_resto import perform_restoration_arrow
                 rr = perform_restoration_arrow(sub, *args)
-            elif backend == "banded":
+            elif backend in ("banded", "nd"):
                 from .banded_resto import perform_restoration_banded
                 rr = perform_restoration_banded(sub, *args)
             else:
@@ -526,6 +610,14 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
             extra_iters = extra_iters.index_copy(0, idx, rr.resto_iters)
         if opts.evaluate_orig_obj_at_resto_trial:
             resto_obj_evals = extra_iters
+        if opts.line_search_method == "cg-penalty":
+            # the penalties re-initialized on the return from a restoration
+            # (IpCGSearchDirCalc.cpp:208-217)
+            pen_new = torch.clamp(opts.pen_init_fac
+                                  * 0.1 ** st.restoration_count.to(dtype), 1e1, 1e6)
+            cg_state = cg_state._replace(
+                penalty=torch.where(need_resto, pen_new, cg_state.penalty),
+                kkt_penalty=torch.where(need_resto, pen_new, cg_state.kkt_penalty))
         resto_count = resto_count + need_resto.long()
     else:
         status = torch.where(need_resto & sr.failed,
@@ -621,7 +713,8 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
 
     # --- recalc_y (IpIpoptAlg.cpp:774-811): once nearly feasible, least-
     #     squares equality multipliers at the accepted point (dense backend)
-    if opts.recalc_y and nlp.chain is None and nlp.struct.me + nlp.struct.mi > 0:
+    if (opts.recalc_y and nlp.chain is None and nlp.struct.me + nlp.struct.mi > 0
+            and not opts.inexact_algorithm):
         theta_acc = _theta(ev_new.c, ev_new.d, new_it.s, norm_type)
         redo = theta_acc < opts.recalc_y_feas_tol
         if bool(redo.any()):
@@ -675,13 +768,14 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
                          int(SolverReturn.INVALID_NUMBER_DETECTED), status)
 
     c = st.counters
-    n_obj = c.n_obj_evals + 1 + ls.n_evals
+    n_obj = c.n_obj_evals + 1 + ls.n_evals + extra_eval.long()
     if resto_obj_evals is not None:
         n_obj = n_obj + resto_obj_evals
     counters = Counters(
         n_obj_evals=n_obj,
         n_grad_evals=c.n_grad_evals + 1 + ls_failed.long(),
-        n_hess_evals=c.n_hess_evals + int(opts.hessian_approximation == "exact"),
+        n_hess_evals=c.n_hess_evals + int(opts.hessian_approximation == "exact"
+                                          and not _matrix_free(opts)),
         n_factorizations=c.n_factorizations + sr.num_trials,
         n_kkt_solves=c.n_kkt_solves + 1 + ls.n_soc_rounds + extra_solves)
     return IPMState(
@@ -699,7 +793,49 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
         wd_ref_theta=wd_ref_theta_next, wd_ref_phi=wd_ref_phi_next,
         soft_resto_count=soft_count, ev=ev_new, filter_rej_count=frc_next,
         n_filter_resets=nfr_next, last_rej_filter=lrf_next, accepted_point=st.it,
-        ams=ams, eip_active=eip_next, lbfgs=lbfgs)
+        ams=ams, eip_active=eip_next, lbfgs=lbfgs, penalty_nu=ls.penalty_nu,
+        cg=cg_state, tr_omega=new_tr_omega, nu_low=nu_low_state, inx_cn=inx_cn_next)
+
+
+def _matrix_free(opts: Options) -> bool:
+    """The step needs no Hessian matrix: MINRES or the inexact algorithm
+    apply it by Hessian-vector products."""
+    return opts.linear_solver == "minres" or opts.inexact_algorithm
+
+
+def _check_step_combination(opts: Options, adaptive: bool) -> None:
+    """The combinations of step paths the reference refuses, with its
+    errors (``solver.py:404-420``)."""
+    if opts.linear_solver == "minres" and adaptive:
+        raise NotImplementedError("adaptive mu with linear_solver='minres' "
+                                  "is not supported yet")
+    if opts.line_search_method == "cg-penalty" and (
+            adaptive or opts.linear_solver == "minres"):
+        # the reference asserts !FreeMuMode (IpCGSearchDirCalc.cpp:144)
+        raise NotImplementedError("cg-penalty requires monotone mu and a "
+                                  "direct linear solver")
+    if opts.inexact_algorithm and adaptive:
+        # IpInexactAlgBuilder.cpp builds it with monotone mu only
+        raise NotImplementedError("inexact_algorithm requires monotone mu")
+
+
+def _multipliers_diverged(nlp: CanonicalNLP, opts: Options, it: Iterate, ev,
+                          ls, dual_inf):
+    """MultipliersDiverged (IpCGPenaltyLSAcceptor.cpp:678-708): at a still
+    infeasible point with exploding multipliers and a collapsing primal
+    step the trial is rejected, so that the restoration runs."""
+    curr_inf2 = torch.sqrt((ev.c ** 2).sum(-1) + ((ev.d - it.s) ** 2).sum(-1))
+    trial_inf2 = torch.sqrt((ls.trial_c ** 2).sum(-1)
+                            + ((ls.trial_d - ls.trial.s) ** 2).sum(-1))
+    y_amax = torch.maximum(kkt.norm_inf(it.y_c), kkt.norm_inf(it.y_d))
+    n_bnd_mults = (nlp.has_xL.sum(-1) + nlp.has_xU.sum(-1) + nlp.has_dL.sum(-1)
+                   + nlp.has_dU.sum(-1) + nlp.mi)
+    a_pr = ls.alpha_primal
+    big_y = (y_amax > opts.mult_diverg_y_tol) & ((n_bnd_mults == 0) | (a_pr < 1e-2))
+    tiny_step_y = (a_pr < 1e-4) & (y_amax > 1e4)
+    return ((curr_inf2 > opts.mult_diverg_feasibility_tol)
+            & (trial_inf2 > opts.mult_diverg_feasibility_tol)
+            & (dual_inf > 1e4) & (big_y | tiny_step_y))
 
 
 def _nonlinear_mask(nlp: CanonicalNLP, opts: Options):
@@ -722,6 +858,8 @@ def _update_hessian(nlp: CanonicalNLP, opts: Options, st: IPMState):
     structured backend, or ``limited_memory_aug_solver="sherman-morrison"``),
     else the dense matrix (``"extended"``)."""
     if opts.hessian_approximation != "limited-memory":
+        if _matrix_free(opts):
+            return None  # the Hessian appears only in products
         return compute_hessian(nlp, st.it)
     from .quasi_newton import lbfgs_compact, lbfgs_dense_W
     nl_mask = _nonlinear_mask(nlp, opts)
@@ -873,7 +1011,7 @@ def initial_state(nlp: CanonicalNLP, opts: Options,
         wd_active=torch.zeros((B,), dtype=torch.bool, device=dev),
         wd_trials=zi, wd_shortened_count=zi, wd_ref=it,
         wd_ref_theta=inf, wd_ref_phi=inf, soft_resto_count=zi, ev=ev,
-        **robust_state_init(opts, it))
+        **robust_state_init(opts, it, outer=True))
 
 
 def initial_check(nlp: CanonicalNLP, opts: Options, st: IPMState) -> IPMState:
@@ -965,7 +1103,7 @@ def solve_canonical(nlp: CanonicalNLP, opts: Options,
         clocks = (time.perf_counter(), time.process_time())
 
     def calls():
-        return _ldlt_mod.ldlt.calls + bcr_factorize.calls
+        return _ldlt_mod.ldlt.calls + bcr_factorize.calls + nd_factorize.calls
 
     calls0 = calls()
     st = initial_state(nlp, opts, it0)
@@ -1050,10 +1188,10 @@ def solve(problem, options: Optional[Options] = None, device=None, it0=None,
     """Solve one NLP (IpoptApplication::OptimizeTNLP equivalent).
 
     ``problem`` is an ``NLP`` (on the dense backend, or with
-    ``linear_solver="banded-bcr"`` on the banded backend of
-    ``ipopt_torch.sparse``), a ``ChainedNLP`` (solved on the
-    block-tridiagonal backend), a ``ScenarioNLP`` (solved on the block-arrow
-    backend) or a canonical problem with one lane.  The
+    ``linear_solver="banded-bcr"`` or ``"multifrontal"`` on the banded or
+    nested-dissection backend of ``ipopt_torch.sparse``), a ``ChainedNLP``
+    (solved on the block-tridiagonal backend), a ``ScenarioNLP`` (solved on
+    the block-arrow backend) or a canonical problem with one lane.  The
     solve runs on ``device``, by default the CUDA device; pass
     ``device="cpu"`` for the CPU.  Keyword arguments override options by
     their Ipopt names.  ``it0`` is a starting iterate, such as the
@@ -1072,8 +1210,13 @@ def solve(problem, options: Optional[Options] = None, device=None, it0=None,
     if intermediate_callback is not None:
         from ..options import register_callback
         opts = opts.replace(callback_token=register_callback(intermediate_callback))
-    if isinstance(problem, NLP) and opts.replace_bounds:
-        # NLPBoundsRemover (IpNLPBoundsRemover.hpp:23)
+    if _matrix_free(opts):
+        # no saved factorization to reuse for second-order corrections
+        opts = opts.replace(max_soc=0)
+    if isinstance(problem, NLP) and (opts.replace_bounds or opts.inexact_algorithm):
+        # NLPBoundsRemover (IpNLPBoundsRemover.hpp:23); the inexact algorithm
+        # requires it (IpInexactAlgBuilder.cpp:64-130): with Sigma_x = 0 the
+        # barrier terms live in the slack-scaled s-block only
         from ..interfaces.transforms import remove_bounds
         problem = remove_bounds(problem)
     if isinstance(problem, NLP) and opts.dependency_detector != "none":
@@ -1091,7 +1234,8 @@ def solve(problem, options: Optional[Options] = None, device=None, it0=None,
                 jn.printf(EJournalLevel.J_DETAILED,
                           EJournalCategory.J_INITIALIZATION, f"c_dep[{k}] = {i}\n")
             problem = reduce_constraints(problem, deps)
-    if isinstance(problem, NLP) and opts.linear_solver == "banded-bcr":
+    if isinstance(problem, NLP) and opts.linear_solver in ("banded-bcr",
+                                                           "multifrontal"):
         from ..sparse import canonicalize_sparse
         cnlp = canonicalize_sparse(problem, opts, device=dev)
     elif isinstance(problem, NLP):

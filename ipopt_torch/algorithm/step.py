@@ -1,11 +1,12 @@
 """Search direction: the PDFullSpaceSolver + PDPerturbationHandler equivalent,
-over a batch (port of ``ipopt_tpu/algorithm/step.py``), with four KKT
+over a batch (port of ``ipopt_tpu/algorithm/step.py``), with five KKT
 backends chosen by the problem (``_backend``): the dense augmented system
 (K1), the block-tridiagonal system of a chained problem (``chained_kkt.py``,
 BCR with K2), the RCM-banded system of a flat problem with
 ``linear_solver="banded-bcr"`` (``ipopt_torch/sparse.py``, the same BCR),
-and the block-arrow system of a scenario problem (``arrow_kkt.py``, K1 on
-the scenario blocks).  A limited-memory Hessian (``quasi_newton.LowRankW``)
+its nested-dissection fronts with ``linear_solver="multifrontal"``
+(``linalg/nested_dissection.py``, K1 on every level), and the block-arrow
+system of a scenario problem (``arrow_kkt.py``, K1 on the scenario blocks).  A limited-memory Hessian (``quasi_newton.LowRankW``)
 is solved by Sherman-Morrison-Woodbury around the backend's base system
 (``lowrank_kkt.py`` on the dense backend, ``lowrank_struct.py`` on the
 others).
@@ -121,6 +122,23 @@ def solve_with_refinement(K, fac: LDLTResult, rhs, opts: Options):
     return refine(lambda s: _matvec(K, s), lambda r: ldlt_solve(fac, r), rhs, opts)
 
 
+def perturbation_start(opts: Options, delta_w_last):
+    """The first delta_x of an inertia-correction retry loop and its growth
+    factor per lane (PDPerturbationHandler, ``step.py:208-239``): from
+    first_hessian_perturbation and perturb_inc_fact_first after a step
+    without one, else from delta_w_last decreased, growing by
+    perturb_inc_fact."""
+    start = torch.where(
+        delta_w_last == 0,
+        torch.full_like(delta_w_last, opts.first_hessian_perturbation),
+        torch.clamp(delta_w_last * opts.perturb_dec_fact,
+                    min=opts.min_hessian_perturbation))
+    inc = torch.where(delta_w_last == 0,
+                      torch.full_like(delta_w_last, opts.perturb_inc_fact_first),
+                      torch.full_like(delta_w_last, opts.perturb_inc_fact))
+    return start, inc
+
+
 class FactorResult(NamedTuple):
     fac: LDLTResult
     K: Any
@@ -132,14 +150,17 @@ class FactorResult(NamedTuple):
 
 
 def factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
-                  W, mu, delta_w_last) -> FactorResult:
+                  W, mu, delta_w_last, delta_cd_override=None) -> FactorResult:
     """Assemble + factorize the augmented system with the inertia-correction
-    retry loop (PDPerturbationHandler schedule, ``step.py:171-245``)."""
+    retry loop (PDPerturbationHandler schedule, ``step.py:171-245``).
+    ``delta_cd_override`` (B,) replaces the mu-based Jacobian regularization
+    (the cg-penalty method's CGPerturbationHandler value)."""
     n, mi, me = nlp.n, nlp.mi, nlp.me
     sig = sigmas(nlp, it)
     expected_pos = n + mi
     expected_neg = me + mi
-    delta_cd = (opts.jacobian_regularization_value
+    delta_cd = (delta_cd_override if delta_cd_override is not None
+                else opts.jacobian_regularization_value
                 * mu ** opts.jacobian_regularization_exponent)
 
     def factor(delta_x, delta_c):
@@ -167,15 +188,7 @@ def factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
         new_delta_c = torch.where(was_singular | (delta_c > 0),
                                   torch.maximum(delta_c, delta_cd), delta_c)
         first_try = delta_x == 0
-        start_val = torch.where(
-            delta_w_last == 0,
-            torch.full_like(delta_w_last, opts.first_hessian_perturbation),
-            torch.clamp(delta_w_last * opts.perturb_dec_fact,
-                        min=opts.min_hessian_perturbation))
-        inc_fact = torch.where(
-            delta_w_last == 0,
-            torch.full_like(delta_w_last, opts.perturb_inc_fact_first),
-            torch.full_like(delta_w_last, opts.perturb_inc_fact))
+        start_val, inc_fact = perturbation_start(opts, delta_w_last)
         bumped = torch.where(first_try, start_val, delta_x * inc_fact)
         new_delta_x = torch.where(only_dc, delta_x, bumped)
         new_gave_up = new_delta_x > opts.max_hessian_perturbation
@@ -193,15 +206,18 @@ def factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
 
 
 def _backend(nlp: CanonicalNLP) -> str:
-    """"dense" without a structure, "banded" for a ``BandedInfo``
-    (``sparse.canonicalize_sparse``), "arrow" for a scenario problem's
-    ``ArrowInfo``, "btd" for a chain's ``ChainInfo``."""
+    """"dense" without a structure, "banded" for a ``BandedInfo`` and "nd"
+    for an ``NDInfo`` (``sparse.canonicalize_sparse``), "arrow" for a
+    scenario problem's ``ArrowInfo``, "btd" for a chain's ``ChainInfo``."""
     from ..sparse import BandedInfo
     from ..parallel.scenario import ArrowInfo
+    from ..linalg.nested_dissection import NDInfo
     if nlp.chain is None:
         return "dense"
     if isinstance(nlp.chain, ArrowInfo):
         return "arrow"
+    if isinstance(nlp.chain, NDInfo):
+        return "nd"
     return "banded" if isinstance(nlp.chain, BandedInfo) else "btd"
 
 
@@ -209,7 +225,7 @@ def compute_hessian(nlp: CanonicalNLP, it: Iterate):
     """The exact Lagrangian Hessian at the current iterate, shaped for the
     backend: dense (B, n, n), the stage blocks (Wd, Wo) of a chain, the
     scenario blocks (W00, W0s, Wss) of an arrow problem, or the entry values
-    (B, nnz) of the banded backend's pattern."""
+    (B, nnz) of the banded or multifrontal backend's pattern."""
     be = _backend(nlp)
     if be == "btd":
         from ..chained import stage_hessians
@@ -217,16 +233,18 @@ def compute_hessian(nlp: CanonicalNLP, it: Iterate):
     if be == "arrow":
         from ..parallel.scenario import scenario_hessians
         return scenario_hessians(nlp, it.x, it.y_c, it.y_d)
-    if be == "banded":
+    if be in ("banded", "nd"):
         from ..sparse import sparse_hessian_values
         return sparse_hessian_values(nlp, it)
     return nlp.eval_lag_hess(it.x, it.y_c, it.y_d)
 
 
 def factorize_any(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
-                  hess, mu, delta_w_last):
+                  hess, mu, delta_w_last, delta_cd_override=None):
     """Backend dispatch of the inertia-corrected factorization; ``hess`` is
-    backend-shaped, or a ``LowRankW`` (limited-memory Hessian)."""
+    backend-shaped, or a ``LowRankW`` (limited-memory Hessian).
+    ``delta_cd_override`` replaces the mu-based Jacobian regularization
+    (the cg-penalty method's; the structured backends still floor it)."""
     from .quasi_newton import LowRankW
     be = _backend(nlp)
     if isinstance(hess, LowRankW):
@@ -239,16 +257,22 @@ def factorize_any(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
         from .arrow_kkt import arrow_factorize_kkt
         from ..parallel.scenario import scenario_jacobians
         return arrow_factorize_kkt(nlp, opts, it, scenario_jacobians(nlp, it.x),
-                                   hess, mu, delta_w_last)
+                                   hess, mu, delta_w_last, delta_cd_override)
     if be == "btd":
         from .chained_kkt import chained_factorize_kkt
         from ..chained import stage_jacobians
         return chained_factorize_kkt(nlp, opts, it, stage_jacobians(nlp, it.x),
-                                     hess, mu, delta_w_last)
+                                     hess, mu, delta_w_last, delta_cd_override)
     if be == "banded":
         from ..sparse import banded_factorize_kkt
-        return banded_factorize_kkt(nlp, opts, it, hess, mu, delta_w_last)
-    return factorize_kkt(nlp, opts, it, ev, hess, mu, delta_w_last)
+        return banded_factorize_kkt(nlp, opts, it, hess, mu, delta_w_last,
+                                    delta_cd_override)
+    if be == "nd":
+        from ..sparse import nd_factorize_kkt
+        return nd_factorize_kkt(nlp, opts, it, hess, mu, delta_w_last,
+                                delta_cd_override)
+    return factorize_kkt(nlp, opts, it, ev, hess, mu, delta_w_last,
+                         delta_cd_override)
 
 
 def solve_any(nlp: CanonicalNLP, opts: Options, fac, K, parts):
@@ -274,6 +298,9 @@ def solve_any(nlp: CanonicalNLP, opts: Options, fac, K, parts):
             from ..sparse import pack_rhs_banded as pack, unpack_sol_banded as unpack
         sol, rr = chained_solve_refined(K, fac, pack(nlp, *parts), opts)
         return unpack(nlp, sol), rr
+    if be == "nd":
+        from ..sparse import nd_solve_parts
+        return nd_solve_parts(nlp, opts, fac, K, parts)
     rhs = torch.cat(parts, dim=-1)
     sol, rr = solve_with_refinement(K, fac, rhs, opts)
     return split_aug_solution(sol, nlp.n, nlp.mi, nlp.me), rr

@@ -21,6 +21,7 @@ from .problem import CanonicalNLP, ARRAY_FIELDS, canonicalize
 from .chained import ChainedNLP, canonicalize_chained
 from .options import Options
 from .sparse import BandedInfo
+from .linalg.nested_dissection import NDInfo
 from .algorithm.solver import (SolveResult, guarded_step, prepare_options,
                                resolve_device, solve_canonical)
 
@@ -40,17 +41,17 @@ def stack_problems(problems, options: Optional[Options] = None,
     (``linear_solver="banded-bcr"``) are refused: that backend solves one
     problem at a time, as the reference's does."""
     opts = options or Options()
-    banded = ("the banded backend (linear_solver='banded-bcr') solves one problem "
-              "at a time: use solve()")
+    banded = ("the banded and multifrontal backends (linear_solver='banded-bcr', "
+              "'multifrontal') solve one problem at a time: use solve()")
 
     def canon(p):
         if isinstance(p, CanonicalNLP):  # a NamedTuple: test it first
-            if isinstance(p.chain, BandedInfo):
+            if isinstance(p.chain, (BandedInfo, NDInfo)):
                 raise ValueError(banded)
             return p
         if isinstance(p, ChainedNLP):
             return canonicalize_chained(p, opts)
-        if opts.linear_solver == "banded-bcr":
+        if opts.linear_solver in ("banded-bcr", "multifrontal"):
             raise ValueError(banded)
         return canonicalize(p, opts)
 

@@ -14,6 +14,7 @@ import torch
 from .chained import ChainInfo, flat_callables
 from .parallel import scenario as _scenario
 from .sparse import BandedInfo
+from .linalg.nested_dissection import NDInfo, NDLevel
 from .options import Options
 from .problem import ARRAY_FIELDS, CanonicalNLP, CanonicalStructure
 from .types import Iterate
@@ -151,3 +152,26 @@ def banded_info_from_reference(info) -> BandedInfo:
     resto = getattr(info, "_resto_info", None)
     fields["resto"] = None if resto is None else banded_info_from_reference(resto)
     return BandedInfo(**fields)
+
+
+_ND_INTS = ("n", "mi", "me", "N", "n_colors_j", "n_colors_h", "total_slots",
+            "n_pad_elim", "n_vals")
+_ND_ARRAYS = ("j_rows", "j_cols", "j_colors", "h_rows", "h_cols", "h_colors",
+              "row_unknown", "asm_src")
+_ND_LEVEL_ARRAYS = ("elim_gid", "bd_gid", "child_scatter", "diag_kind")
+
+
+def nd_info_from_reference(info) -> NDInfo:
+    """The port's ``NDInfo`` from the reference's
+    (``ipopt_tpu.linalg.nested_dissection``), its restoration analysis
+    included; every array is copied as numpy."""
+    fields = {k: int(getattr(info, k)) for k in _ND_INTS}
+    fields.update({k: np.array(getattr(info, k)) for k in _ND_ARRAYS})
+    inv = np.asarray(info.asm_inv)
+    fields["asm_slot"] = np.flatnonzero(inv < fields["asm_src"].shape[0])
+    fields.update({k: tuple(np.array(a) for a in getattr(info, k))
+                   for k in _ND_LEVEL_ARRAYS})
+    fields["levels"] = tuple(NDLevel(*(int(v) for v in lv)) for lv in info.levels)
+    resto = getattr(info, "_resto_info", None)
+    fields["resto"] = None if resto is None else nd_info_from_reference(resto)
+    return NDInfo(**fields)

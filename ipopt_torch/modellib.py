@@ -313,6 +313,78 @@ def mittelmann_dist_control(N: int) -> NLP:
                lag_hess_sparsity=(diag, diag), name=f"mittelmann_dist_control_N{N}")
 
 
+def mittelmann_dist_control_3d(N: int) -> NLP:
+    """3-D elliptic distributed control (``ipopt_tpu/modellib.py:593-668``;
+    the MittelmannDistCntrl3D family of examples/ScalableProblems), the 2-D
+    problem's semilinear PDE constraint on a 7-point stencil with the
+    Dirichlet boundary y = 0:
+
+        min  hh sum 0.5 ((y_ijk - yd)^2 + alpha u_ijk^2)
+        s.t. 6 y_ijk - y_nbrs + hh (-exp(y_ijk) - u_ijk) = 0
+             y <= 0.371,  -8 <= u <= 9
+
+    with yd = sin(2 pi x1) sin(2 pi x2) sin(2 pi x3), alpha = 0.001, and
+    x = [Y (N^3 interior) | U (N^3)].  The declared 7-point Jacobian
+    pattern has an RCM bandwidth of O(N^2), too wide for banded BCR: solve
+    it with ``linear_solver="multifrontal"``."""
+    h = 1.0 / (N + 1)
+    hh = h * h
+    alpha = 0.001
+    ny = N * N * N
+    n = 2 * ny
+    m = ny
+
+    ii, jj, kk = np.meshgrid(np.arange(1, N + 1), np.arange(1, N + 1),
+                             np.arange(1, N + 1), indexing="ij")
+    yd = DeviceConstant((np.sin(2 * np.pi * ii * h) * np.sin(2 * np.pi * jj * h)
+                         * np.sin(2 * np.pi * kk * h)).reshape(-1))
+
+    def f(x):
+        y = x[:ny]
+        u = x[ny:]
+        return hh * (0.5 * ((y - yd.like(x)) ** 2 + alpha * u ** 2)).sum()
+
+    def g(x):
+        Y = x[:ny].reshape(N, N, N)
+        u = x[ny:].reshape(N, N, N)
+        Yp = torch.nn.functional.pad(Y, (1, 1, 1, 1, 1, 1))   # y = 0 outside
+        pde = (6.0 * Y
+               - Yp[:-2, 1:-1, 1:-1] - Yp[2:, 1:-1, 1:-1]
+               - Yp[1:-1, :-2, 1:-1] - Yp[1:-1, 2:, 1:-1]
+               - Yp[1:-1, 1:-1, :-2] - Yp[1:-1, 1:-1, 2:]
+               + hh * (-torch.exp(Y) - u))
+        return pde.reshape(-1)
+
+    # the declared 7-point-stencil Jacobian pattern, built as the reference's
+    idx = np.arange(ny, dtype=np.int32).reshape(N, N, N)
+    rows = [idx.reshape(-1)]                     # center y
+    cols = [idx.reshape(-1)]
+    for axis, off in ((0, -1), (0, 1), (1, -1), (1, 1), (2, -1), (2, 1)):
+        sl_r = [slice(None)] * 3
+        sl_c = [slice(None)] * 3
+        sl_r[axis] = slice(1, None) if off == -1 else slice(None, -1)
+        sl_c[axis] = slice(None, -1) if off == -1 else slice(1, None)
+        rows.append(idx[tuple(sl_r)].reshape(-1))
+        cols.append(idx[tuple(sl_c)].reshape(-1))
+    rows.append(idx.reshape(-1))                 # u column
+    cols.append(ny + idx.reshape(-1))
+    jr = np.concatenate(rows)
+    jc = np.concatenate(cols)
+    diag = np.arange(n, dtype=np.int32)
+
+    x_L = np.full(n, -1e20)
+    x_U = np.full(n, np.inf)
+    x_U[:ny] = 0.371
+    x_L[ny:] = -8.0
+    x_U[ny:] = 9.0
+    x0 = np.zeros(n)
+    x0[ny:] = 0.5
+    return NLP(name=f"mittelmann_dist_control_3d_N{N}",
+               f=f, g=g, g_L=np.zeros(m), g_U=np.zeros(m),
+               x_L=x_L, x_U=x_U, x0=x0,
+               jac_g_sparsity=(jr, jc), lag_hess_sparsity=(diag, diag))
+
+
 def _lv_bounds(m: int, equality: bool):
     """g_L, g_U of the LukVlE (g = 0) and LukVlI (-1 <= g <= 0) instances."""
     return (np.zeros(m) if equality else np.full(m, -1.0)), np.zeros(m)

@@ -3,12 +3,15 @@
     python3 -m ipopt_torch.profile_main            # HS071 family, dense (K1)
     python3 -m ipopt_torch.profile_main chained    # LuksanVlcek1 4096/32 (K2)
     python3 -m ipopt_torch.profile_main banded     # LuksanVlcek1 flat 1e5 (K2)
+    python3 -m ipopt_torch.profile_main multifrontal  # 3-D control N = 24 (K1)
 
 The first stacks the 512-instance HS071 family on the card and solves it
 with ``solve_batched``; the second solves ``luksan_vlcek1(4096, 32)`` (128
 blocks of 156, block cyclic reduction) with ``solve``; the third solves
 ``luksan_vlcek1_flat(100_000)`` with ``linear_solver="banded-bcr"`` (12,500
-blocks of 16 after RCM).  All run in float64 with the options of
+blocks of 16 after RCM); the fourth solves ``mittelmann_dist_control_3d(24)``
+with ``linear_solver="multifrontal"`` (15 tree levels).  All run in float64
+with the options of
 ``bench.py:74-80``: once to warm up, then once under ``cProfile`` and once
 under ``torch.profiler``, and print:
 - the card (``nvidia-smi`` name and power limit), the warm wall time and,
@@ -28,6 +31,8 @@ under ``torch.profiler``, and print:
 The banded path then solves ``luksan_vlcek1_flat(1_000_000)`` (125,000
 blocks of 16) once cold and once warm, and prints its set-up time, warm
 wall, ms per iteration and peak device memory (a measurement, not a gate).
+The multifrontal path prints K1's share of the device time and the
+triangular solves' launches (per ``nd_solve`` call and per solve).
 It needs a CUDA device.
 """
 from __future__ import annotations
@@ -59,7 +64,8 @@ FUNCS = ("solve_canonical", "initial_state", "_ipm_step_impl", "compute_hessian"
          "assemble_btd", "bcr_factorize", "block_ldlt_inv", "chained_solve_refined",
          "bcr_solve", "eval_jac_t", "canonicalize_sparse", "sparse_hessian_values",
          "jacobian_values", "banded_factorize_kkt", "assemble_banded",
-         "add_diag_deltas")
+         "add_diag_deltas", "nd_factorize_kkt", "nd_assemble", "nd_add_diag_deltas",
+         "nd_factorize", "_extend_add", "nd_solve_refined", "nd_solve", "nd_matvec")
 
 
 def _device_us(e):
@@ -172,12 +178,45 @@ def capture_k1_inputs(run):
                     into=seen)
 
 
+def time_k1_calls(run):
+    """K1's device time inside one ``run()``: a CUDA event recorded on the
+    current stream just before and just after every call of K1's wrapper
+    (the same two names ``capture_k1_inputs`` watches).  Recording adds no
+    synchronisation; a pair brackets the wrapper's own host work too, which
+    shows only where the stream ran dry.  Returns (run's result, [(shape,
+    ms) per call])."""
+    pairs = []
+
+    def timed(inner):
+        def call(A):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = inner(A)
+            end.record()
+            pairs.append((tuple(A.shape), start, end))
+            return res
+        return call
+
+    inners = [(m, m.block_ldlt) for m in (ldlt_mod, block_tridiag)]
+    for m, inner in inners:
+        m.block_ldlt = timed(inner)
+    try:
+        res = run()
+    finally:
+        for m, inner in inners:
+            m.block_ldlt = inner
+    torch.cuda.synchronize()
+    return res, [(shape, s.elapsed_time(e)) for shape, s, e in pairs]
+
+
 def capture_k2_inputs(run):
     """Every input K2 gets from the block cyclic reduction in one ``run()``."""
     return _capture(block_tridiag, "block_ldlt_inv", run)
 
 
 BANDED_N, BANDED_BIG_N = 100_000, 1_000_000
+ND_N = 24
 # K2 launches per factorization at BANDED_N: 14 BCR levels of 12,500 blocks and the root
 BANDED_K2_PER_FACTORIZATION = 15
 
@@ -185,6 +224,14 @@ BANDED_K2_PER_FACTORIZATION = 15
 def _setup(mode, dev):
     """(run, kernel counter, kernel name pattern) of the path ``mode``."""
     t0 = time.perf_counter()
+    if mode == "multifrontal":
+        kw = dict(OPTS, linear_solver="multifrontal")
+        nlp = canonicalize_sparse(modellib.mittelmann_dist_control_3d(ND_N), Options(**kw),
+                                  device=dev)
+        print(f"set-up (canonicalize_sparse) mittelmann_dist_control_3d({ND_N}): "
+              f"{time.perf_counter() - t0:.3f} s, KKT {nlp.chain.N} in "
+              f"{len(nlp.chain.levels)} levels")
+        return (lambda: solve(nlp, device=dev, **kw)), bl.block_ldlt, "ldlt_"
     if mode == "banded":
         nlp = canonicalize_sparse(modellib.luksan_vlcek1_flat(BANDED_N),
                                   Options(linear_solver="banded-bcr", **OPTS), device=dev)
@@ -208,8 +255,9 @@ def _setup(mode, dev):
 def main(mode="hs071"):
     if not torch.cuda.is_available():
         raise SystemExit("profile_main: no CUDA device")
-    if mode not in ("hs071", "chained", "banded"):
-        raise SystemExit(f"profile_main: unknown path {mode!r} (hs071, chained or banded)")
+    if mode not in ("hs071", "chained", "banded", "multifrontal"):
+        raise SystemExit(f"profile_main: unknown path {mode!r} (hs071, chained, banded "
+                         f"or multifrontal)")
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -267,9 +315,9 @@ def main(mode="hs071"):
     mine = [e for e in events if pattern in e.key and "kernel" in e.key]
     if mine and launches:
         t = sum(_device_us(e) for e in mine)
-        print(f"{'K1' if mode == 'hs071' else 'K2'} device time: "
+        print(f"{'K2' if mode in ('chained', 'banded') else 'K1'} device time: "
               f"{t / launches:.2f} us per launch over {launches} launches "
-              f"({t / 1e3:.3f} ms in all)")
+              f"({t / 1e3:.3f} ms in all, {t / busy_us:.4f} of the device's busy time)")
     if mode == "chained":
         g = torch.Generator(device="cpu").manual_seed(0)
         A = torch.randn((64, 156, 156), generator=g, dtype=torch.float64)
@@ -283,6 +331,15 @@ def main(mode="hs071"):
             ms, n, clk = _back_to_back(k2.block_ldlt_inv, blocks)
             print(f"K2 back to back on {name}: {ms * 1e3:.2f} us per launch "
                   f"(CUDA events, {n} launches); {clk}")
+    elif mode == "multifrontal":
+        trsm = [e for e in events if "trsm" in e.key.lower()]
+        n_solves = sum(st[0] for (path, _, name), st in stats.stats.items()
+                       if name == "nd_solve" and "ipopt_torch" in path)
+        n_trsm = sum(e.count for e in trsm)
+        print(f"triangular solves: {n_trsm} kernel launches with 'trsm' in their name, "
+              f"{sum(_device_us(e) for e in trsm) / 1e3:.3f} ms device time, over "
+              f"{n_solves} nd_solve calls ({n_trsm / max(n_solves, 1):.1f} per call; "
+              f"the cuBLAS kernel names as the profiler gives them)")
     elif mode == "banded":
         inputs = capture_k2_inputs(run)
         first = inputs[0::BANDED_K2_PER_FACTORIZATION]

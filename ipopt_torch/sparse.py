@@ -47,7 +47,7 @@ from torch.func import grad, hessian, jacfwd, jvp, vmap
 from .options import Options
 from .problem import NLP, CanonicalNLP, canonicalize
 from .scaling import grad_scale_factor
-from .types import Iterate, max_init, tree_map, tree_where
+from .types import Iterate, cached_tensor, max_init, tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -189,14 +189,8 @@ class BandedInfo:
         return isinstance(other, BandedInfo) and self._key() == other._key()
 
     def tensor(self, name: str, device) -> torch.Tensor:
-        """The index array ``name`` on ``device``, uploaded once (cached);
-        32-bit indices stay 32-bit (int32 indexing), masks become bool."""
-        key = (name, str(device))
-        t = self._cache.get(key)
-        if t is None:
-            t = torch.as_tensor(np.ascontiguousarray(getattr(self, name)), device=device)
-            self._cache[key] = t
-        return t
+        """The index array ``name`` on ``device``, uploaded once (cached)."""
+        return cached_tensor(self, name, device)
 
 
 def _targets_oriented(pos, b, ui, uj):
@@ -402,7 +396,8 @@ def _declared_hessian(hess_pat, n):
 
 def canonicalize_sparse(nlp: NLP, options: Optional[Options] = None,
                         device=None) -> CanonicalNLP:
-    """The canonical form (B = 1) of a flat NLP for the banded-BCR backend
+    """The canonical form (B = 1) of a flat NLP for the banded-BCR backend,
+    or with ``linear_solver="multifrontal"`` for the nested-dissection one
     (``ipopt_tpu/sparse.py:461-600``), on ``device`` (default the CPU).
     Patterns from ``nlp.jac_g_sparsity`` / ``lag_hess_sparsity`` or, for a
     small problem, detected by dense AD probing."""
@@ -457,7 +452,13 @@ def canonicalize_sparse(nlp: NLP, options: Optional[Options] = None,
 
     eq_mask = np.zeros((m,), bool)
     eq_mask[s.eq_idx] = True
-    info = analyze_sparsity(n, mi, me, j_rows, j_cols, eq_mask, h_rows, h_cols)
+    if opts.linear_solver == "multifrontal":
+        # nested dissection for patterns whose RCM bandwidth is too wide for
+        # BCR (3-D grids; ``sparse.py:539-551``)
+        from .linalg.nested_dissection import nd_analyze as analyze
+    else:
+        analyze = analyze_sparsity
+    info = analyze(n, mi, me, j_rows, j_cols, eq_mask, h_rows, h_cols)
 
     if opts.resto_phase:
         # the restoration NLP: x widened by per-row n/p slacks (g - p + n),
@@ -482,9 +483,9 @@ def canonicalize_sparse(nlp: NLP, options: Optional[Options] = None,
         jc_resto = (np.concatenate([info.j_colors, np.full(m, ncj, np.int32),
                                     np.full(m, ncj + 1, np.int32)])
                     if m else info.j_colors)
-        resto = analyze_sparsity(nr, mi, me, jr_rows, jr_cols, eq_mask,
-                                 Hd.row.astype(np.int32), Hd.col.astype(np.int32),
-                                 j_colors=jc_resto)
+        resto = analyze(nr, mi, me, jr_rows, jr_cols, eq_mask,
+                        Hd.row.astype(np.int32), Hd.col.astype(np.int32),
+                        j_colors=jc_resto)
         info = dataclasses.replace(info, resto=resto, _cache={})
 
     base = base._replace(chain=info)
@@ -653,19 +654,18 @@ class BandedFactorResult(NamedTuple):
 
 
 def banded_factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate, h_vals, mu,
-                         delta_w_last) -> BandedFactorResult:
+                         delta_w_last, delta_cd_override=None) -> BandedFactorResult:
     """Inertia-corrected banded factorization, the reference's schedule
     (``ipopt_tpu/sparse.py:800-876``): one zero-delta assembly, the deltas
     re-added per trial, and delta_c escalated on every failed round (x100,
     at most 1e-2): under an RCM ordering a y-row can be eliminated before
     its x partners, and a larger dual regularization restores quasi-definite
-    conditioning where the elimination lost the -delta_c pivots."""
+    conditioning where the elimination lost the -delta_c pivots.
+    ``delta_cd_override`` (B,) replaces the mu-based regularization value
+    (the cg-penalty method's); the floor stays."""
     from .linalg.block_tridiag import bcr_factorize
     exp_pos, exp_neg = expected_inertia_banded(nlp)
     j_vals = jacobian_values(nlp, it.x)
-    base_cd = (opts.jacobian_regularization_value
-               * mu ** opts.jacobian_regularization_exponent)
-    delta_cd = torch.clamp(base_cd, min=opts.jacobian_regularization_value)
     zero = torch.zeros_like(mu)
     K_base = assemble_banded(nlp, it, j_vals, h_vals, zero, zero)
 
@@ -676,33 +676,38 @@ def banded_factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate, h_vals, 
         ok = (fac.num_pos == exp_pos) & (fac.num_neg == exp_neg) & ~fac.singular
         return Kb, fac, ok
 
-    dxv, dcv = zero, delta_cd
+    return _retry_schedule(opts, factor, mu, delta_w_last, delta_cd_override)
+
+
+def _retry_schedule(opts: Options, factor, mu, delta_w_last, delta_cd_override):
+    """The inertia-correction retry loop of the banded and multifrontal
+    backends (``sparse.py:800-876, 909-978``) around ``factor(delta_x,
+    delta_c) -> (K, fac, ok)``.  Both backends carry one lane
+    (``canonicalize_sparse`` builds one, ``batch.solve_batched`` refuses
+    them), so a trial replaces the previous one: its K and factor are
+    dropped before the next trial is factored, as the reference's loop
+    carries only one."""
+    from .algorithm.step import perturbation_start
+    assert mu.numel() == 1, "the banded and multifrontal backends carry one lane"
+    base_cd = (delta_cd_override if delta_cd_override is not None
+               else opts.jacobian_regularization_value
+               * mu ** opts.jacobian_regularization_exponent)
+    delta_cd = torch.clamp(base_cd, min=opts.jacobian_regularization_value)
+    dxv, dcv = torch.zeros_like(mu), delta_cd
     Kb, fac, ok = factor(dxv, dcv)
     trials = torch.ones(mu.shape, dtype=torch.int64, device=mu.device)
     gave_up = torch.zeros(mu.shape, dtype=torch.bool, device=mu.device)
-    while True:
-        active = ~(ok | gave_up) & (trials < opts.max_inertia_correction_rounds)
-        if not bool(active.any()):
-            break
+    while bool((~(ok | gave_up) & (trials < opts.max_inertia_correction_rounds)).any()):
         only_dc = fac.singular & (dcv <= delta_cd)
         new_dc = torch.clamp(torch.maximum(dcv * 100.0, delta_cd), max=1e-2)
-        start_val = torch.where(
-            delta_w_last == 0,
-            torch.full_like(delta_w_last, opts.first_hessian_perturbation),
-            torch.clamp(delta_w_last * opts.perturb_dec_fact,
-                        min=opts.min_hessian_perturbation))
-        inc_fact = torch.where(
-            delta_w_last == 0,
-            torch.full_like(delta_w_last, opts.perturb_inc_fact_first),
-            torch.full_like(delta_w_last, opts.perturb_inc_fact))
+        start_val, inc_fact = perturbation_start(opts, delta_w_last)
         bumped = torch.where(dxv == 0, start_val, dxv * inc_fact)
-        new_dx = torch.where(only_dc, dxv, bumped)
-        new_gave_up = new_dx > opts.max_hessian_perturbation
-        Kb2, fac2, ok2 = factor(new_dx, new_dc)
-        trials, dxv, dcv, Kb, fac, ok, gave_up = tree_where(
-            active,
-            (trials + 1, new_dx, new_dc, Kb2, fac2, ok2, new_gave_up),
-            (trials, dxv, dcv, Kb, fac, ok, gave_up))
+        dxv = torch.where(only_dc, dxv, bumped)
+        dcv = new_dc
+        gave_up = dxv > opts.max_hessian_perturbation
+        Kb = fac = None
+        Kb, fac, ok = factor(dxv, dcv)
+        trials = trials + 1
 
     new_last = torch.where(dxv > 0, dxv, delta_w_last)
     return BandedFactorResult(fac=fac, K=Kb, delta_x=dxv, delta_c=dcv,
@@ -727,3 +732,43 @@ def unpack_sol_banded(nlp: CanonicalNLP, sol):
     out[:, info.tensor("perm", sol.device)] = sol[:, :info.N]
     return (out[:, :n], out[:, n:n + mi], out[:, n + mi:n + mi + me],
             out[:, n + mi + me:])
+
+
+# ---------------------------------------------------------------------------
+# The nested-dissection multifrontal backend (``linear_solver=
+# "multifrontal"``, ``sparse.py:909-991``): the banded backend's contract on
+# the fronts of ``linalg/nested_dissection.py``
+# ---------------------------------------------------------------------------
+
+def nd_factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate, h_vals, mu,
+                     delta_w_last, delta_cd_override=None) -> BandedFactorResult:
+    """Inertia-corrected multifrontal factorization: one zero-delta assembly,
+    the deltas re-added per trial, the banded backend's schedule."""
+    from .linalg.nested_dissection import (nd_aux, nd_assemble,
+                                           nd_add_diag_deltas, nd_factorize)
+    info = nlp.chain
+    aux = nd_aux(info, it.x.device)
+    exp_pos, exp_neg = info.n + info.mi, info.me + info.mi
+    j_vals = jacobian_values(nlp, it.x)
+    zero = torch.zeros_like(mu)
+    K_base = nd_assemble(nlp, aux, info, it, j_vals, h_vals, zero, zero)
+
+    def factor(dxv, dcv):
+        Kf = nd_add_diag_deltas(info, aux, K_base, dxv, dcv)
+        fac = nd_factorize(info, aux, Kf, pivot_tol=opts.ldlt_pivot_tol)
+        ok = (fac.num_pos == exp_pos) & (fac.num_neg == exp_neg) & ~fac.singular
+        return Kf, fac, ok
+
+    return _retry_schedule(opts, factor, mu, delta_w_last, delta_cd_override)
+
+
+def nd_solve_parts(nlp: CanonicalNLP, opts: Options, fac, K, parts):
+    """The four right-hand-side blocks [x | s | y_c | y_d] (the unknowns'
+    own order: no permutation) solved and refined; split back."""
+    from .linalg.nested_dissection import nd_aux, nd_solve_refined
+    info = nlp.chain
+    rhs = torch.cat(parts, -1)
+    sol, rr = nd_solve_refined(info, nd_aux(info, rhs.device), K, fac, rhs, opts)
+    n, mi, me = info.n, info.mi, info.me
+    return (sol[:, :n], sol[:, n:n + mi], sol[:, n + mi:n + mi + me],
+            sol[:, n + mi + me:]), rr

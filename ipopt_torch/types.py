@@ -11,6 +11,7 @@ from __future__ import annotations
 import enum
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -189,3 +190,15 @@ class DeviceConstant:
         if t is None:
             t = self._copies[key] = self.value.to(device=x.device, dtype=dtype)
         return t
+
+
+def cached_tensor(info, name: str, device) -> torch.Tensor:
+    """The numpy field ``name`` of a static descriptor (``sparse.BandedInfo``,
+    ``linalg.nested_dissection.NDInfo``) on ``device``, uploaded once and
+    kept in its ``_cache``; 32-bit indices stay 32-bit, masks become bool."""
+    key = (name, str(device))
+    t = info._cache.get(key)
+    if t is None:
+        t = torch.as_tensor(np.ascontiguousarray(getattr(info, name)), device=device)
+        info._cache[key] = t
+    return t

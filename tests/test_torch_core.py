@@ -105,7 +105,11 @@ def test_options_match_reference():
 SLICE_F_MODULES = ("ipopt_torch.parallel.scenario", "ipopt_torch.algorithm.arrow_kkt",
                    "ipopt_torch.algorithm.arrow_resto", "ipopt_torch.algorithm.quasi_newton",
                    "ipopt_torch.algorithm.lowrank_kkt",
-                   "ipopt_torch.algorithm.lowrank_struct")
+                   "ipopt_torch.algorithm.lowrank_struct",
+                   # slice G
+                   "ipopt_torch.linalg.nested_dissection",
+                   "ipopt_torch.algorithm.matrix_free", "ipopt_torch.algorithm.inexact",
+                   "ipopt_torch.algorithm.cg_penalty")
 
 
 def test_port_imports_no_jax():
@@ -264,8 +268,8 @@ def test_solve_without_device_needs_cuda(monkeypatch):
 
 @pytest.mark.parametrize("opt", [
     dict(derivative_test="first-order"), dict(jacobian_approximation="finite-difference-values"),
-    dict(linear_solver="multifrontal"), dict(line_search_method="cg-penalty"),
-    dict(inexact_algorithm=True),
+    dict(linear_solver="dense-ldlt-blocked"), dict(linear_solver="custom"),
+    dict(refinement_precision="double"),
     dict(gradient_approximation="finite-difference-values")])
 def test_unported_option_rejected(opt):
     with pytest.raises(UnsupportedOptionError):

@@ -188,8 +188,7 @@ def test_timing_statistics_prints(capsys):
 
 def test_only_the_listed_options_are_refused():
     """_SUPPORTED refuses the features later slices bring, nothing else."""
-    refused = dict(linear_solver="multifrontal",
-                   inexact_algorithm=True, line_search_method="cg-penalty",
+    refused = dict(linear_solver="dense-ldlt-blocked",
                    derivative_test="first-order",
                    gradient_approximation="finite-difference-values",
                    jacobian_approximation="finite-difference-values",
@@ -197,6 +196,8 @@ def test_only_the_listed_options_are_refused():
     for name, value in refused.items():
         with pytest.raises(UnsupportedOptionError):
             check_supported(ipopt_torch.Options(**{name: value}))
+    with pytest.raises(UnsupportedOptionError):
+        check_supported(ipopt_torch.Options(linear_solver="custom"))
     for kw in (dict(mu_strategy="adaptive"), dict(mehrotra_algorithm=True),
                dict(corrector_type="primal-dual"), dict(warm_start_init_point=True),
                dict(replace_bounds=True), dict(dependency_detector="mumps"),
@@ -205,5 +206,9 @@ def test_only_the_listed_options_are_refused():
                dict(nlp_scaling_method="equilibration-based"),
                dict(hessian_approximation="limited-memory"),
                dict(hessian_approximation="limited-memory",
-                    limited_memory_aug_solver="extended")):
+                    limited_memory_aug_solver="extended"),
+               dict(linear_solver="multifrontal"), dict(linear_solver="minres"),
+               dict(inexact_algorithm=True), dict(line_search_method="penalty"),
+               dict(line_search_method="cg-penalty"),
+               dict(line_search_method="none")):
         check_supported(ipopt_torch.Options(**kw))

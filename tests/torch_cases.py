@@ -395,6 +395,110 @@ for _k, _n in ((2, 20), (3, 20), (4, 16), (5, 16), (6, 17), (7, 16)):
             (f"luksan_vlcek{_k}", (_n, _eq)), suite="suites")
 
 
+# -- slice G: the multifrontal backend (tests/test_nested_dissection.py) and
+#    the matrix-free, inexact and penalty step paths (tests/test_inexact.py,
+#    test_matrix_free.py, test_cg_penalty.py, test_structured_combos.py:63,
+#    test_wired_options.py:467) -------------------------------------------
+# min (1-x1)^2 s.t. 10 (x2 - x1^2) = 0 (tests/problems.py:45)
+HS_SPECS["hs006"] = lambda m, arr: dict(
+    f=lambda x: (1.0 - x[0]) ** 2, g=lambda x: arr([10.0 * (x[1] - x[0] ** 2)]),
+    g_L=np.array([0.0]), g_U=np.array([0.0]), x0=np.array([-1.2, 1.0]))
+# the restoration case of tests/test_nested_dissection.py:108
+HS_SPECS["nd_resto"] = lambda m, arr: dict(
+    f=lambda x: m.sum((x - 2.0) ** 2), g=lambda x: arr([x[0] ** 2 + x[1] ** 2]),
+    x_L=-5.0, x_U=5.0, g_L=np.array([1.0]), g_U=np.array([1.0]),
+    x0=np.array([3.0, 0.1, 0.0]))
+
+
+def _control_1d(m, arr, n=60):
+    """The 1-D discretized control of tests/test_inexact.py:43-71: the
+    tridiagonal state equation A x = u, n states and n controls."""
+    h = 1.0 / (n + 1)
+    target = np.sin(np.pi * np.linspace(h, 1.0 - h, n))
+    torch_pkg = m.__name__ == "torch"
+
+    def const(x, v):
+        if torch_pkg:
+            return m.as_tensor(v, dtype=x.dtype, device=x.device)
+        return m.asarray(v)
+
+    def f(z):
+        x, u = z[:n], z[n:]
+        return 0.5 * m.sum((x - const(z, target)) ** 2) + 0.5e-3 * m.sum(u ** 2)
+
+    def g(z):
+        x, u = z[:n], z[n:]
+        zero = x[:1] * 0.0
+        lap = (2.0 * x - m.concatenate([x[1:], zero])
+               - m.concatenate([zero, x[:-1]])) / h ** 2
+        return lap - u
+
+    return dict(f=f, g=g, g_L=np.zeros(n), g_U=np.zeros(n), x0=np.zeros(2 * n))
+
+
+HS_SPECS["control_1d"] = _control_1d
+MF = dict(linear_solver="multifrontal")
+for _name, _prob in {
+        "nd3d_6": ("mittelmann_dist_control_3d", (6,)),
+        "nd3d_10": ("mittelmann_dist_control_3d", (10,)),
+        "nd_lv1_64": ("luksan_vlcek1_flat", (64,)),
+        "nd_mitt12": ("mittelmann_dist_control", (12,)),
+        "nd_hs071": "hs071_d0",
+        "nd_resto": "nd_resto",
+        # enters the restoration phase on the multifrontal backend
+        "nd_infeasible": "infeasible"}.items():
+    CASES[_name] = _c(_prob, MF, suite="nd")
+INEXACT = dict(inexact_algorithm=True)
+for _prob, _it in (("hs071_d0", 300), ("hs035", 300), ("hs006", 500),
+                   ("hs038", 500)):
+    _short = _prob.split("_")[0]
+    CASES[f"{_short}_minres"] = _c(_prob, dict(linear_solver="minres", tol=1e-7),
+                                   suite="inexact")
+    CASES[f"{_short}_inexact"] = _c(_prob, dict(INEXACT, max_iter=_it),
+                                    suite="inexact")
+    CASES[f"{_short}_cgpen"] = _c(_prob, dict(line_search_method="cg-penalty",
+                                              max_iter=_it), suite="inexact")
+    CASES[f"{_short}_penalty"] = _c(_prob, dict(line_search_method="penalty",
+                                                max_iter=_it), suite="inexact")
+for _policy in ("adaptive", "switch-once"):
+    CASES[f"hs071_inexact_{_policy}"] = _c("hs071_d0", dict(
+        INEXACT, tol=1e-6, inexact_step_decomposition=_policy), suite="inexact")
+# "always" (no decomposition bit in the carry) on a smaller problem.  On
+# hs006 the reference's jitted solve takes 45 factorizations and its eager
+# one 21, as the port: the MINRES residuals there are rounding noise
+CASES["hs035_inexact_always"] = _c("hs035", dict(
+    INEXACT, tol=1e-6, inexact_step_decomposition="always"), suite="inexact")
+CASES["hs071_ls_none"] = _c("hs071_d0", dict(line_search_method="none"),
+                            suite="inexact")
+# hs035 under the l1-penalty acceptor: nu reaches ~4e15 against a constraint
+# violation of ~1e-16, so the acceptance is decided by the last bits of
+# g(x): a relative change of 1e-15 in x0 changes either package's outcome
+# (the reference's recorded nominal solve ends in status 6, its perturbed
+# ones in status 0; test_torch_inexact.py shows it).  The perturbed starts
+# are held to status and objective.
+for _k in (1, 2, 3):
+    HS_SPECS[f"hs035_p{_k}"] = (lambda m, arr, k=_k: dict(
+        HS_SPECS["hs035"](m, arr), x0=np.array([0.5, 0.5, 0.5])
+        * (1.0 + 1e-15 * np.random.RandomState(k).standard_normal(3))))
+    CASES[f"hs035_penalty_p{_k}"] = _c(f"hs035_p{_k}", dict(
+        line_search_method="penalty", max_iter=300), suite="inexact", chaotic=True)
+CASES["hs035_penalty"]["suite"] = "chaotic"
+CASES["control_1d_inexact"] = _c("control_1d", dict(INEXACT, max_iter=300, tol=1e-7),
+                                 suite="inexact")
+CASES["lv1_64_cgpen"] = _c(("luksan_vlcek1", (64, 4)), dict(
+    tol=1e-6, line_search_method="cg-penalty"), suite="inexact")
+# chip_smoke.py G1: the 3-D control at N = 16 on the card against these
+CASES["nd3d_16"] = _c(("mittelmann_dist_control_3d", (16,)), dict(BENCH, **MF),
+                      suite="chip")
+# chip_smoke.py G3: the 2-D control at N = 30 on the multifrontal backend
+# (the banded backend's solve ends at another point, in the reference too)
+CASES["nd_mitt30"] = _c(("mittelmann_dist_control", (30,)), dict(BENCH, **MF),
+                        suite="chip")
+# chip_smoke.py G4: cg-penalty on the chained path at bench.py's size
+CASES["lv1_4096_cgpen"] = _c(("luksan_vlcek1", (4096, 32)), dict(
+    BENCH, line_search_method="cg-penalty"), suite="chip")
+
+
 def suite_cases(suite: str):
     return sorted(k for k, v in CASES.items() if v["suite"] == suite)
 
