@@ -90,11 +90,27 @@ Phases, in order (any failure exits non-zero before the result line):
    ``penalty`` (card against CPU and the reference), the 1-D control with
    the inexact algorithm, and cg-penalty on ``luksan_vlcek1(4096, 32)``
    against the reference, K2 within its rule on every input;
-12. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error,
+12. slice H: H1 ``factorization_dtype="float32"`` under a float64 iterate
+   (tol 1e-7) on the four factored backends at full width: the HS071
+   family (K1 in float32 at (512, 7, 7), lanes 0, 255, 511 = the
+   reference), ``luksan_vlcek1(4096, 32)`` and ``luksan_vlcek1_flat(1e5)``
+   with mc19 (K2 in float32 on every BCR level, within its rule on every
+   input), ``mittelmann_dist_control_3d(24)`` (K1 in float32 on every
+   level, peak memory), each at a small size card against CPU and the
+   reference's recorded float32-factorization values, and each kernel's
+   float32 time per level beside its float64 time; H2 a float32 iterate
+   with ``refinement_precision="double"`` (the family and the chained
+   path); H3 ``linear_solver="dense-ldlt-blocked"`` (K1 on (1, 128, 128)
+   panels, KKT 198 = the reference, KKT 1998 beside ``dense-ldlt``); H4
+   sensitivity (the parametric HS071 family in one K1 launch; the chained
+   1-D boundary control with K2); H5 the custom KKT solver, finite
+   differences, the derivative checker, ``profiling.solve_timed`` and
+   ``profiling.trace`` (K1's kernel events counted);
+13. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error,
    time, the plain version's and the library call's time and the least time
    the card could take, both kernels' launches per path, K2's numbers per
    path and its launch plans, K1's per multifrontal level;
-13. the last line: ``{"ok": true, "device": {...}}``.
+14. the last line: ``{"ok": true, "device": {...}}``.
 
 Each phase's start is printed with the seconds since the script started.
 It needs a CUDA device and the ``ipopt_torch`` package next to it;
@@ -503,8 +519,16 @@ def k2_bound(nb, b, dtype=None):
 # first-order change of the inverse under a backward error of b ulps of g,
 # the largest entry the unpivoted sweep meets (at least max|A| and max|d|).
 # The BCR's upper levels and roots are far worse conditioned than seeded
-# blocks, and their sweeps grow: pivots reach 1e6 on entries of 1e2.
+# blocks, and their sweeps grow: pivots reach 1e6 on entries of 1e2.  The
+# limits are float64's; float32 blocks take the same number of ulps of
+# float32 (the limits times eps(float32) / eps(float64)).
 PATH_TOL_INV, PATH_TOL_D = 1e-11, 1e-10
+
+
+def _ulps(dtype):
+    """The path limits' scale for ``dtype`` against float64."""
+    import torch
+    return torch.finfo(dtype).eps / torch.finfo(torch.float64).eps
 
 
 def _k2_compare(A, d_k, inv_k, d_p, inv_p):
@@ -516,13 +540,14 @@ def _k2_compare(A, d_k, inv_k, d_p, inv_p):
     import torch
     from ipopt_torch.linalg.block_tridiag import _block_inertia_counts
     from ipopt_torch.linalg.ldlt import _pivot_tols
-    tiny = torch.finfo(torch.float64).tiny
-    eps = torch.finfo(torch.float64).eps
+    tiny = torch.finfo(A.dtype).tiny
+    eps = torch.finfo(A.dtype).eps
+    tol_inv, tol_d = PATH_TOL_INV * _ulps(A.dtype), PATH_TOL_D * _ulps(A.dtype)
     guard = ~(d_p.abs() > tiny)        # zero or NaN pivots: the guard fired
     guarded = guard.any(-1)
     counts_k = torch.stack(_block_inertia_counts(d_k[:, None], 0.0))
     counts_p = torch.stack(_block_inertia_counts(d_p[:, None], 0.0))
-    live = d_p.abs() > _pivot_tols(d_p.abs().amax(-1), torch.float64, 0.0)[:, None]
+    live = d_p.abs() > _pivot_tols(d_p.abs().amax(-1), A.dtype, 0.0)[:, None]
     signs_ok = bool(((torch.sign(d_k) == torch.sign(d_p)) | ~live).all())
     pattern_ok = (torch.equal(torch.isfinite(inv_k), torch.isfinite(inv_p))
                   and torch.equal(torch.isfinite(d_k), torch.isfinite(d_p)))
@@ -533,7 +558,7 @@ def _k2_compare(A, d_k, inv_k, d_p, inv_p):
     b = A.shape[-1]
     growth = torch.maximum(A.abs().amax((1, 2)),
                            d_p.abs().nan_to_num(0.0, 0.0, 0.0).amax(-1))
-    limit = torch.maximum(PATH_TOL_INV * scale, b * eps * growth * scale ** 2)
+    limit = torch.maximum(tol_inv * scale, b * eps * growth * scale ** 2)
     ratio = diff / limit
     rel_d = ((d_k - d_p).abs() / d_p.abs()).nan_to_num(0.0, 0.0, 0.0).amax(-1)
     worst = {"regular": [0.0, 0.0], "guarded": [0.0, 0.0]}
@@ -549,7 +574,7 @@ def _k2_compare(A, d_k, inv_k, d_p, inv_p):
         res_k = (A[reg] @ inv_k[reg] - eye).abs().amax((1, 2))
         res_p = (A[reg] @ inv_p[reg] - eye).abs().amax((1, 2))
         worst_resid = float((res_k / res_p.clamp(min=eps)).max())
-    close = bool((ratio[reg] <= 1.0).all() and (rel_d[reg] <= PATH_TOL_D).all())
+    close = bool((ratio[reg] <= 1.0).all() and (rel_d[reg] <= tol_d).all())
     inertia_ok = torch.equal(counts_k, counts_p)
     why = (f"disagrees with its plain version (inertia equal {inertia_ok}, signs "
            f"{signs_ok}, finite pattern {pattern_ok}, regular blocks within limits "
@@ -649,7 +674,7 @@ def check_k2_on_path(dev, inputs, per, path, card):
         ms = time_cuda(lambda g=group: [k2.block_ldlt_inv(A) for A in g],
                        reps=10, warmup=1) / len(group)
         level_ms.append(ms)
-        pl = k2.plan(group[0].shape[0], b_path, torch.float64)
+        pl = k2.plan(group[0].shape[0], b_path, group[0].dtype)
         log(f"K2 on the {path} path, level {name}: {len(group)} inputs of {tuple(group[0].shape)}, "
             f"plan cs={pl.cs} strip rows={list(pl.rows)} shared={pl.smem} B; "
             f"{n_guarded_blocks}/{n_blocks} blocks with a guarded pivot, {n_guarded} "
@@ -657,7 +682,8 @@ def check_k2_on_path(dev, inputs, per, path, card):
             f"of two, {n_slow} others; "
             f"inertia and live pivot signs equal -> ok; {ms:.4f} ms per launch")
     for key, (r_inv, r_d) in worst.items():
-        held = (f"held: max |dAinv| / limit {worst_ratio:.3e}, d to {PATH_TOL_D:g}; "
+        held = (f"held: max |dAinv| / limit {worst_ratio:.3e}, d to "
+                f"{PATH_TOL_D * _ulps(inputs[0].dtype):g}; "
                 f"max|A Ainv - I| of the kernel at most {worst_resid:.3f}x the plain "
                 f"version's" if key == "regular"
                 else "not held: the retry loop reads only their inertia")
@@ -675,16 +701,16 @@ def check_k2_on_path(dev, inputs, per, path, card):
     plain_ms = time_cuda(lambda: k2.block_ldlt_inv_plain(A1), reps=3, warmup=1)
     inv_ms = time_cuda(lambda: torch.linalg.inv_ex(A1), reps=20, warmup=2)
     nb1 = A1.shape[0]
-    bound_ms, bound_by, nbytes, ops = k2_bound(nb1, b_path)
+    bound_ms, bound_by, nbytes, ops = k2_bound(nb1, b_path, A1.dtype)
     ms = level_ms[0]
     log(f"K2 per launch on the {path} path's own blocks ({', '.join(names)}): "
         + ", ".join(f"{t:.4f}" for t in level_ms) + f" ms; level 1 split: {split}; card {card}")
-    log(f"K2 timing ({nb1}, {b_path}, {b_path}) float64 on the {path} path's own "
+    log(f"K2 timing ({nb1}, {b_path}, {b_path}) {str(A1.dtype)[6:]} on the {path} path's own "
         f"first-level blocks: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
         f"{nbytes} B, {ops} flops), torch.linalg.inv_ex (inverse only, pivoted) "
         f"{inv_ms:.4f} ms")
-    pl = k2.plan(nb1, b_path, torch.float64)
+    pl = k2.plan(nb1, b_path, A1.dtype)
     return dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=inv_ms,
                 level_ms=level_ms, launches_per_factorization=per,
@@ -2439,6 +2465,599 @@ def slice_g_phases(dev, opts, card):
     return dict(g1=g1, g2=g2, g3=g3, g4=g4)
 
 
+# -- slice H: float32 factorizations on the solve paths, the blocked dense
+#    LDL^T, sensitivity and the hooks -----------------------------------------
+# H1: the mixed-precision options of the reference's tests/test_mixed_precision.py
+F32FAC = dict(factorization_dtype="float32", tol=1e-7)
+F32IT = dict(dtype="float32", refinement_precision="double", tol=1e-7)
+# finite differences at tol 1e-7 (tests/torch_cases.py "fam*_fd": at 1e-8
+# their noise decides the last iterations)
+FD = dict(gradient_approximation="finite-difference-values",
+          jacobian_approximation="finite-difference-values", tol=1e-7)
+FAMILY_LANES = (0, 255, 511)
+# H3: LuksanVlcek1 as one dense NLP: KKT 1998 wide, 16 panels of 128
+BLOCKED_N = 1000
+# H1's multifrontal solve at N = 24 stops after this many iterations (depth
+# cut for the script's time: the whole float32 solve enters the restoration
+# phase and takes ~120 s on the card; K1 runs in float32 on every level of
+# each factorization all the same)
+H1_ND_MAX_ITER = 3
+# ... and its card-against-CPU check runs at N = 6 (tests/torch_cases.py
+# "mp_nd3d_6_f32fac": the reference's float32 solve ends in status 10 after
+# 19 iterations and one restoration)
+H1_ND_CPU_N = 6
+# H2's family: one lane of 512 runs to max_iter (3000 iterations, ~300 s on
+# the card); the other lanes end within 12 iterations
+H2_MAX_ITER = 100
+# H4: the 1-D boundary control on the chained backend at N = 2048 (64 blocks
+# of 156; status 0 in 10 iterations): at N = 4096 the solve ends in status 10
+# after 7 iterations, on the card and on the CPU (ROADMAP Queue 3)
+SENS_CHAIN_N, SENS_CHAIN_V, SENS_CPU_N = 2048, 32, 512
+
+
+def _recorded(name):
+    """The reference's recorded (status, iterations, objective) of a case of
+    tests/torch_cases.py (tools/torch_reference_values.py)."""
+    rec = _torch_cases().recorded()[name]
+    return rec["status"], rec["iter_count"], rec["obj"]
+
+
+def _lanes_vs_reference(path, res, name_of_lane, rtol=1e-9):
+    """Lanes FAMILY_LANES of a batched result against the reference's
+    recorded solves of those lanes: status and iterations equal, objective
+    to ``rtol``."""
+    for i in FAMILY_LANES:
+        ref = _recorded(name_of_lane(i))
+        got = (int(res.status[i]), int(res.iter_count[i]), float(res.obj[i]))
+        rel = abs(got[2] - ref[2]) / abs(ref[2])
+        log(f"{path} lane {i}: (status, iterations, objective) {got}; reference "
+            f"{tuple(ref)}, rel diff {rel:.2e} (tol {rtol:g})")
+        if got[:2] != tuple(ref[:2]) or rel > rtol:
+            raise SystemExit(f"{path}: lane {i} differs from the reference")
+
+
+def _count_reset():
+    from ipopt_torch.linalg import block_ldlt as bl
+    from ipopt_torch.linalg import block_ldlt_inv as k2
+    bl.block_ldlt.launches = 0
+    k2.block_ldlt_inv.launches = 0
+
+
+def _counts():
+    from ipopt_torch.linalg import block_ldlt as bl
+    from ipopt_torch.linalg import block_ldlt_inv as k2
+    return bl.block_ldlt.launches, k2.block_ldlt_inv.launches
+
+
+def h1_dense(dev, card, family):
+    """H1 dense: the HS071 family, B = 512, float64 iterate, float32 KKT
+    factorizations: 512/512 status 0, lanes 0, 255, 511 at the reference's
+    values, the first 8 lanes' iterations equal to the CPU's; K1 launches
+    counted from 0 equal to the batched factorizations, bit-equal to its
+    plain version on every input of the warm solve and timed on them."""
+    import torch
+    import ipopt_torch
+    from ipopt_torch.profile_main import capture_k1_inputs
+    kw = dict(F32FAC, print_level=0)
+    nlp_b = ipopt_torch.stack_problems(family, ipopt_torch.Options(**kw), device=dev)
+    ipopt_torch.solve_batched(nlp_b, device=dev, **kw)
+    _count_reset()
+    out = []
+    t0 = time.perf_counter()
+    inputs = capture_k1_inputs(lambda: out.append(
+        ipopt_torch.solve_batched(nlp_b, device=dev, **kw)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = out[0]
+    k1_n, k2_n = _counts()
+    n_ok = int((res.status == 0).sum())
+    log(f"H1 dense: solve_batched(HS071 family, B = {FAMILY_B}) float64 iterate, "
+        f"float32 factorizations, tol 1e-7: {n_ok}/{FAMILY_B} status 0, warm solve "
+        f"{wall:.3f} s (inputs captured meanwhile); K1 launches {k1_n}, batched "
+        f"factorizations {res.batched_factorizations}, K2 launches {k2_n}; K1 inputs "
+        f"{sorted({(tuple(A.shape), str(A.dtype)[6:]) for A in inputs})}; card {card}")
+    if n_ok != FAMILY_B or k1_n != res.batched_factorizations or k1_n == 0 or k2_n:
+        raise SystemExit("H1 dense: not every lane converged, or the launches are off")
+    # the KKT inputs (b = 7) in float32; the initial multipliers' system
+    # (b = 2) is not a KKT factorization and keeps the model's dtype
+    if any(A.dtype != torch.float32 for A in inputs if A.shape[-1] == 7):
+        raise SystemExit("H1 dense: a KKT factorization was not float32")
+    _lanes_vs_reference("H1 dense", res, lambda i: f"fam{i}_f32fac")
+    cpu = ipopt_torch.solve_batched(family[:8], device="cpu", **kw)
+    if cpu.iter_count.tolist() != res.iter_count[:8].tolist():
+        raise SystemExit(f"H1 dense: iterations {res.iter_count[:8].tolist()} differ "
+                         f"from the CPU's {cpu.iter_count.tolist()}")
+    k1 = check_k1_inputs(dev, inputs, (FAMILY_B, 7, 7), "H1 dense float32", card)
+    return dict(k1, k1_launches=k1_n, wall_s=wall)
+
+
+def h1_chained(dev, card, kw=None, tag="H1 chained"):
+    """luksan_vlcek1(4096, 32), float64 iterate, float32 BCR levels (K2 in
+    float32, the cluster variant at (64, 156, 156)): cold capturing K2's
+    inputs, warm with the counts from 0; K2 within its rule on every input
+    and timed per level; (256, 32) card against CPU and the reference."""
+    import torch
+    import ipopt_torch
+    from ipopt_torch import modellib
+    from ipopt_torch.profile_main import capture_k2_inputs
+    kw = dict(F32FAC, print_level=0) if kw is None else kw
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cnlp = ipopt_torch.canonicalize_chained(modellib.luksan_vlcek1(LV1_N, LV1_V),
+                                            ipopt_torch.Options(**kw), device=dev)
+    cold = []
+    inputs = capture_k2_inputs(lambda: cold.append(ipopt_torch.solve(cnlp, device=dev, **kw)))
+    _count_reset()
+    t0 = time.perf_counter()
+    res = ipopt_torch.solve(cnlp, device=dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_n, k2_n = _counts()
+    got = (int(res.status), int(res.iter_count), int(res.counters.n_factorizations))
+    log(f"{tag}: solve(luksan_vlcek1({LV1_N}, {LV1_V})) {kw}: (status, iterations, "
+        f"factorizations) {got}, objective {float(res.obj)!r} (float64 reference "
+        f"{LV1_OBJ!r}); warm {wall:.3f} s ({wall / max(got[1], 1) * 1e3:.1f} "
+        f"ms/iteration); K2 launches {k2_n}, K1 {k1_n}; K2 inputs "
+        f"{sorted({str(A.dtype)[6:] for A in inputs})}; card {card}")
+    ok_status = (0,) if kw.get("dtype") != "float32" else (0, 4, 5)
+    if (got[0] not in ok_status or k1_n or k2_n != LV1_K2_PER_FACTORIZATION * got[2]
+            or int(cold[0].iter_count) != got[1]
+            or abs(float(res.obj) - LV1_OBJ) > 5e-6):
+        raise SystemExit(f"{tag}: {got}, K2 {k2_n}, K1 {k1_n}")
+    if any(A.dtype != torch.float32 for A in inputs):
+        raise SystemExit(f"{tag}: a BCR level was not float32")
+    return res, wall, k2_n, inputs
+
+
+def h1_banded(dev, card):
+    """luksan_vlcek1_flat(1e5) with mc19 and float32 BCR levels (K2 in
+    float32 at (6250, 16, 16) first): status 0 or 5 (the reference's
+    test_mixed_precision.py:44-55 admits the acceptable level), the
+    objective at the float64 optimum to 1e-8 (refinement against the
+    float64 K); n = 2000 card against CPU and the reference."""
+    import torch
+    import ipopt_torch
+    from ipopt_torch import modellib
+    from ipopt_torch.sparse import canonicalize_sparse
+    from ipopt_torch.profile_main import capture_k2_inputs
+    kw = dict(F32FAC, print_level=0, linear_system_scaling="mc19", **BANDED)
+    cnlp = canonicalize_sparse(modellib.luksan_vlcek1_flat(LVF_N),
+                               ipopt_torch.Options(**kw), device=dev)
+    cold = []
+    inputs = capture_k2_inputs(lambda: cold.append(ipopt_torch.solve(cnlp, device=dev, **kw)))
+    _count_reset()
+    t0 = time.perf_counter()
+    res = ipopt_torch.solve(cnlp, device=dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_n, k2_n = _counts()
+    got = (int(res.status), int(res.iter_count), int(res.counters.n_factorizations))
+    log(f"H1 banded: solve(luksan_vlcek1_flat({LVF_N}), banded-bcr, mc19) float64 "
+        f"iterate, float32 factorizations, tol 1e-7: (status, iterations, "
+        f"factorizations) {got}, objective {float(res.obj)!r} (float64 reference "
+        f"{LVF_OBJ!r}); warm {wall:.3f} s; K2 launches {k2_n}, K1 {k1_n}; card {card}")
+    if (got[0] not in (0, 5) or k1_n or k2_n != LVF_K2_PER_FACTORIZATION * got[2]
+            or abs(float(res.obj) - LVF_OBJ) > 1e-8 or int(cold[0].iter_count) != got[1]):
+        raise SystemExit(f"H1 banded: {got}, K2 {k2_n}, K1 {k1_n}")
+    if any(A.dtype != torch.float32 for A in inputs):
+        raise SystemExit("H1 banded: a BCR level was not float32")
+    _card_vs_cpu("H1 banded, luksan_vlcek1_flat(2000)",
+                 lambda: modellib.luksan_vlcek1_flat(2000), dev, kw,
+                 ref=_recorded("lv1flat_2000_f32fac"),
+                 status=_recorded("lv1flat_2000_f32fac")[0])
+    return res, wall, k2_n, inputs
+
+
+def h1_multifrontal(dev, card):
+    """mittelmann_dist_control_3d(24), float64 iterate, float32 fronts (K1 in
+    float32 on every level), once: status, K1 once per level of every
+    factorization, K1 bit-equal to its plain version on the first
+    factorization's 15 level inputs and timed per level, peak device
+    memory; N = 6 card against CPU and the reference."""
+    import torch
+    import ipopt_torch
+    from ipopt_torch import modellib
+    from ipopt_torch.linalg import nested_dissection as nd
+    from ipopt_torch.sparse import canonicalize_sparse
+    kw = dict(F32FAC, print_level=0, **MF)
+    cnlp = canonicalize_sparse(modellib.mittelmann_dist_control_3d(ND_N),
+                               ipopt_torch.Options(**kw), device=dev)
+    kw_n = dict(kw, max_iter=H1_ND_MAX_ITER)
+    levels = len(cnlp.chain.levels)
+    _count_reset()
+    nd.nd_factorize.calls = nd.nd_factorize.levels = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    from ipopt_torch.linalg import block_tridiag as btd
+    inner = btd.block_ldlt
+    held = []
+
+    def keep_first(A):
+        # the first factorization's level inputs only (a copy each)
+        if len(held) < levels:
+            held.append(A.clone())
+        return inner(A)
+
+    btd.block_ldlt = keep_first
+    t0 = time.perf_counter()
+    try:
+        res = ipopt_torch.solve(cnlp, device=dev, **kw_n)
+        torch.cuda.synchronize()
+    finally:
+        btd.block_ldlt = inner
+    wall = time.perf_counter() - t0
+    held_b = sum(A.element_size() * A.numel() for A in held)
+    peak = (torch.cuda.max_memory_allocated() - held_b) / 2**30
+    k1_n, k2_n = _counts()
+    want = nd.nd_factorize.levels
+    got = (int(res.status), int(res.iter_count), int(res.counters.n_factorizations),
+           int(res.restoration_count))
+    log(f"H1 multifrontal: solve(mittelmann_dist_control_3d({ND_N}), max_iter "
+        f"{H1_ND_MAX_ITER}) float64 iterate, float32 fronts, tol 1e-7: (status, "
+        f"iterations, factorizations, "
+        f"restorations) {got}, objective {float(res.obj)!r}; solve {wall:.3f} s "
+        f"(one, cold); peak device memory {peak:.3f} GiB (float64 fronts: 10.55 GiB, "
+        f"G1 of PR 8), {base / 2**30:.3f} GiB held before; K1 launches {k1_n} "
+        f"(levels x factorizations {want}), K2 {k2_n}; card {card}")
+    # the status is printed, not held (the solve stops at H1_ND_MAX_ITER);
+    # N = 6 is held to the reference's recorded value below
+    if (not np.isfinite(float(res.obj)) or k1_n != want or k2_n
+            or len(held) != levels):
+        raise SystemExit(f"H1 multifrontal: {got}, K1 {k1_n} (want {want}), K2 {k2_n}")
+    if any(A.dtype != torch.float32 for A in held):
+        raise SystemExit("H1 multifrontal: a front was not float32")
+    k1 = check_k1_levels(dev, held, levels, "H1 multifrontal float32", card)
+    del held
+    _card_vs_cpu(f"H1 multifrontal N = {H1_ND_CPU_N}",
+                 lambda: modellib.mittelmann_dist_control_3d(H1_ND_CPU_N), dev, kw,
+                 ref=_recorded("mp_nd3d_6_f32fac"),
+                 status=_recorded("mp_nd3d_6_f32fac")[0])
+    return dict(k1, k1_launches=k1_n, status=got[0], iterations=got[1],
+                factorizations=got[2], wall_s=wall, peak_gib=peak)
+
+
+def h1_phase(dev, card, family, f64):
+    """H1: float64 iterate, float32 factorization on the four factored
+    backends; each kernel's float32 time per level beside its float64 time
+    of this run (``f64``) and its bound."""
+    from ipopt_torch import modellib
+    dense = h1_dense(dev, card, family)
+    phase("H1 chained")
+    _card_vs_cpu("H1 chained, luksan_vlcek1(256, 32)",
+                 lambda: modellib.luksan_vlcek1(256, 32), dev,
+                 dict(F32FAC, print_level=0), ref=_recorded("lv1_256_f32fac"),
+                 status=_recorded("lv1_256_f32fac")[0])
+    _, c_wall, c_k2, c_inputs = h1_chained(dev, card)
+    chained = check_k2_on_path(dev, c_inputs, LV1_K2_PER_FACTORIZATION,
+                               "H1 chained float32", card)
+    del c_inputs
+    phase("H1 banded")
+    _, b_wall, b_k2, b_inputs = h1_banded(dev, card)
+    banded = check_k2_on_path(dev, b_inputs, LVF_K2_PER_FACTORIZATION,
+                              "H1 banded float32", card)
+    del b_inputs
+    phase("H1 multifrontal")
+    mf = h1_multifrontal(dev, card)
+    log(f"H1 K1 (512, 7, 7): float32 {dense['ms']:.5f} ms, float64 "
+        f"{f64.get('k1_hs071_ms', float('nan')):.5f} ms, float32 bound "
+        f"{dense['bound_ms']:.6f} ms ({dense['bound_by']}); card {card}")
+    log("H1 K2 chained per level, float32 / float64 ms: " + ", ".join(
+        f"{a:.4f} / {b:.4f}" for a, b in zip(chained["level_ms"],
+                                             f64.get("k2_chained_level_ms", []))))
+    log("H1 K2 banded per level, float32 / float64 ms: " + ", ".join(
+        f"{a:.4f} / {b:.4f}" for a, b in zip(banded["level_ms"],
+                                             f64.get("k2_banded_level_ms", []))))
+    log("H1 K1 multifrontal per level (n_d, p): float32 / float64 ms (bound): " + ", ".join(
+        f"{tuple(r['shape'][:2])} {r['ms']:.4f} / {q['ms']:.4f} ({r['bound_ms']:.6f})"
+        for r, q in zip(mf["levels"], f64.get("k1_nd_levels", []))))
+    return dict(dense=dense, chained=dict(chained, launches=c_k2, wall_s=c_wall),
+                banded=dict(banded, launches=b_k2, wall_s=b_wall), multifrontal=mf)
+
+
+def h2_phase(dev, card, family):
+    """H2: float32 iterate with refinement_precision="double": the family at
+    B = 512 (statuses equal to the CPU's on the first 8 lanes and 255, 511,
+    objectives to 1e-6, lane 0 at the reference's recorded status and
+    iterations and objective to 1e-6) and luksan_vlcek1(4096, 32) (status
+    0, 4 or 5 as the reference's test admits, objective at the float64
+    optimum to 5e-6; (256, 32) card against the reference)."""
+    import torch
+    import ipopt_torch
+    from ipopt_torch import modellib
+    kw = dict(F32IT, print_level=0, max_iter=H2_MAX_ITER)
+    nlp_b = ipopt_torch.stack_problems(family, ipopt_torch.Options(**kw), device=dev)
+    _count_reset()
+    t0 = time.perf_counter()
+    res = ipopt_torch.solve_batched(nlp_b, device=dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_n, k2_n = _counts()
+    lanes = list(range(8)) + [FAMILY_B // 2 - 1, FAMILY_B - 1]
+    cpu = ipopt_torch.solve_batched([family[i] for i in lanes], device="cpu", **kw)
+    st = res.status.cpu()
+    log(f"H2 dense: solve_batched(HS071 family, B = {FAMILY_B}) float32 iterate, "
+        f"refinement_precision double, tol 1e-7, max_iter {H2_MAX_ITER}: statuses "
+        f"{dict(zip(*np.unique(st.numpy(), return_counts=True)))}, x dtype "
+        f"{res.x.dtype}; {wall:.3f} s; K1 launches {k1_n}, K2 {k2_n}; card {card}")
+    for j, i in enumerate(lanes):
+        rel = abs(float(res.obj[i]) - float(cpu.obj[j])) / abs(float(cpu.obj[j]))
+        if int(res.status[i]) != int(cpu.status[j]) or rel > 1e-6:
+            raise SystemExit(f"H2 dense: lane {i} card ({int(res.status[i])}, "
+                             f"{float(res.obj[i])!r}) against CPU ({int(cpu.status[j])}, "
+                             f"{float(cpu.obj[j])!r})")
+    ref = _recorded("fam0_f32it")
+    rel0 = abs(float(res.obj[0]) - ref[2]) / abs(ref[2])
+    log(f"H2 dense lane 0: ({int(res.status[0])}, {int(res.iter_count[0])}, "
+        f"{float(res.obj[0])!r}); reference {tuple(ref)}, rel diff {rel0:.2e} (tol "
+        f"1e-6); lanes {lanes} equal the CPU's statuses, objectives to 1e-6 "
+        f"(iterations card {res.iter_count[lanes].tolist()}, CPU "
+        f"{cpu.iter_count.tolist()})")
+    if (int(res.status[0]), int(res.iter_count[0])) != tuple(ref[:2]) or rel0 > 1e-6:
+        raise SystemExit("H2 dense: lane 0 differs from the reference")
+    kw = dict(F32IT, print_level=0)
+    small = ipopt_torch.solve(modellib.luksan_vlcek1(256, 32), device=dev, **kw)
+    ref = _recorded("lv1_256_f32it")
+    rel = abs(float(small.obj) - ref[2]) / abs(ref[2])
+    log(f"H2 chained luksan_vlcek1(256, 32): ({int(small.status)}, "
+        f"{int(small.iter_count)}, {float(small.obj)!r}); reference {tuple(ref)}, "
+        f"rel diff {rel:.2e} (tol 1e-6)")
+    if int(small.status) != ref[0] or rel > 1e-6:
+        raise SystemExit("H2 chained: (256, 32) differs from the reference")
+    cres, c_wall, c_k2, inputs = h1_chained(dev, card, kw, "H2 chained")
+    del inputs
+    return dict(dense=dict(k1_launches=k1_n, wall_s=wall),
+                chained=dict(k2_launches=c_k2, wall_s=c_wall, status=int(cres.status),
+                             iterations=int(cres.iter_count)))
+
+
+def h3_phase(dev, card):
+    """H3: linear_solver="dense-ldlt-blocked": luksan_vlcek1_dense(100) (KKT
+    198, 2 panels) card against CPU and the reference; luksan_vlcek1_dense(
+    1000) (KKT 1998, 16 panels of 128) at status 0, K1 16 times per
+    factorization at (1, 128, 128), bit-equal on every input, and its wall
+    beside the same solve under dense-ldlt (K1's device-memory variant at
+    b = 1998)."""
+    import torch
+    import ipopt_torch
+    from ipopt_torch import modellib
+    from ipopt_torch.profile_main import capture_k1_inputs
+    assert not torch.backends.cuda.matmul.allow_tf32
+    blk = dict(print_level=0, linear_solver="dense-ldlt-blocked")
+    _card_vs_cpu("H3 blocked, luksan_vlcek1_dense(100)",
+                 lambda: modellib.luksan_vlcek1_dense(100), dev, blk,
+                 ref=_recorded("blk_lv1d100"),
+                 status=_recorded("blk_lv1d100")[0])
+    nlp = modellib.luksan_vlcek1_dense(BLOCKED_N)
+    out = {}
+    for solver in ("dense-ldlt-blocked", "dense-ldlt"):
+        kw = dict(print_level=0, linear_solver=solver)
+        ipopt_torch.solve(nlp, device=dev, **kw)
+        _count_reset()
+        t0 = time.perf_counter()
+        res = ipopt_torch.solve(nlp, device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1_n, k2_n = _counts()
+        got = (int(res.status), int(res.iter_count), int(res.counters.n_factorizations))
+        out[solver] = dict(status=got[0], iterations=got[1], factorizations=got[2],
+                           wall_s=wall, k1_launches=k1_n, obj=float(res.obj))
+        log(f"H3 {solver}: solve(luksan_vlcek1_dense({BLOCKED_N})) (KKT "
+            f"{2 * BLOCKED_N - 2}): (status, iterations, factorizations) {got}, objective "
+            f"{float(res.obj)!r}; warm {wall:.3f} s; K1 launches {k1_n}, K2 {k2_n}; "
+            f"card {card}")
+        if got[0] != 0 or k2_n:
+            raise SystemExit(f"H3 {solver}: {got}, K2 {k2_n}")
+    blocked = out["dense-ldlt-blocked"]
+    kw = dict(print_level=0, linear_solver="dense-ldlt-blocked")
+    inputs = capture_k1_inputs(lambda: ipopt_torch.solve(nlp, device=dev, **kw))
+    panels = [A for A in inputs if tuple(A.shape) == (1, 128, 128)]
+    per = -(-(2 * BLOCKED_N - 2) // 128)
+    if len(panels) != per * blocked["factorizations"]:
+        raise SystemExit(f"H3: {len(panels)} panel inputs, want {per} x "
+                         f"{blocked['factorizations']}")
+    if dev.type == "cuda" and blocked["k1_launches"] != len(inputs):
+        raise SystemExit(f"H3: {blocked['k1_launches']} K1 launches, {len(inputs)} "
+                         f"inputs in the same solve")
+    k1 = check_k1_inputs(dev, inputs, (1, 128, 128), "H3 blocked panels", card)
+    log(f"H3: blocked {blocked['wall_s']:.3f} s against dense-ldlt "
+        f"{out['dense-ldlt']['wall_s']:.3f} s for the same solve; {per} K1 panel "
+        f"launches per factorization; card {card}")
+    return dict(out, k1=k1, panels_per_factorization=per)
+
+
+def _parametric_hs071(p):
+    """HS071 with its equality's right-hand side the parameter p (the bench
+    family as NLP(params=...))."""
+    import torch
+    import ipopt_torch
+    return ipopt_torch.NLP(
+        f=lambda x, q: x[0] * x[3] * (x[0] + x[1] + x[2]) + x[2],
+        g=lambda x, q: torch.stack([x[0] * x[1] * x[2] * x[3],
+                                    (x * x).sum() - q]),
+        x_L=1.0, x_U=5.0, g_L=[25.0, 0.0], g_U=[2e19, 0.0],
+        x0=[1.0, 5.0, 5.0, 1.0], params=np.asarray(p))
+
+
+def h4_phase(dev, card):
+    """H4: sensitivity.  The parametric HS071 family (p_i = 40 + 0.005 i,
+    B = 512): solve, sensitivity_step of every lane in one call (one K1
+    launch at (512, 7, 7), bit-equal), perturbed_solution of lane i to lane
+    i + 1's parameter against lane i + 1's solve; the chained 1-D boundary
+    control at N = 2048: sensitivity_step in alpha and reduced_hessian on
+    the two boundary controls with K2 on the BCR levels, both card against
+    CPU at N = 512."""
+    import torch
+    import ipopt_torch
+    from ipopt_torch import modellib, sens
+    from ipopt_torch.profile_main import capture_k1_inputs, capture_k2_inputs
+    opts = ipopt_torch.Options(tol=1e-8, acceptable_tol=1e-6, acceptable_iter=10,
+                               print_level=0)
+    ps = 40.0 + 0.005 * np.arange(FAMILY_B)
+    nlp_b = ipopt_torch.stack_problems([_parametric_hs071(p) for p in ps], opts,
+                                       device=dev)
+    res = ipopt_torch.solve_batched(nlp_b, opts, device=dev)
+    if int((res.status == 0).sum()) != FAMILY_B:
+        raise SystemExit("H4: the parametric family did not converge")
+    dp = np.full(FAMILY_B, 0.005)
+    _count_reset()
+    t0 = time.perf_counter()
+    out = []
+    inputs = capture_k1_inputs(lambda: out.append(
+        sens.sensitivity_step(nlp_b, opts, res.iterate, dp, device=dev)))
+    torch.cuda.synchronize()
+    s_ms = (time.perf_counter() - t0) * 1e3
+    k1_n, k2_n = _counts()
+    sr = out[0]
+    if k1_n != 1 or k2_n or len(inputs) != 1:
+        raise SystemExit(f"H4: sensitivity_step launched K1 {k1_n}, K2 {k2_n} times")
+    k1 = check_k1_inputs(dev, inputs, (FAMILY_B, 7, 7), "H4 sensitivity", card)
+    pert = sens.perturbed_solution(nlp_b, opts, res.iterate, ps + 0.005, device=dev)
+    err = float((pert.x[:-1] - res.x[1:]).abs().max())
+    err0 = float((res.x[:-1] - res.x[1:]).abs().max())
+    cpu_lanes = [0, FAMILY_B // 2 - 1, FAMILY_B - 2]
+    sub = nlp_b.take(torch.as_tensor(cpu_lanes, device=dev)).to("cpu")
+    it_sub = [v[cpu_lanes].cpu() for v in res.iterate]
+    sr_cpu = sens.sensitivity_step(sub, opts, it_sub, dp[:3], device="cpu")
+    d_cpu = max(float((a[cpu_lanes].cpu() - b).abs().max()) for a, b in zip(sr, sr_cpu))
+    log(f"H4 parametric HS071 family, B = {FAMILY_B}: sensitivity_step of every lane "
+        f"in one call {s_ms:.2f} ms (K1 inputs captured), 1 K1 launch at ({FAMILY_B}, 7, 7); "
+        f"perturbed_solution to lane i + 1's parameter: max |x - x_{{i+1}}| "
+        f"{err:.3e} (unperturbed {err0:.3e}); lanes {cpu_lanes} card against CPU "
+        f"{d_cpu:.2e} (tol 1e-10); card {card}")
+    if err > 0.1 * err0 or d_cpu > 1e-10:
+        raise SystemExit("H4: the first-order update or the CPU check failed")
+    # the chained 1-D boundary control
+    rows = {}
+    for n in (SENS_CHAIN_N, SENS_CPU_N):
+        cp = modellib.mittelmann_bndry_control_1d(n, SENS_CHAIN_V)
+        cn = ipopt_torch.canonicalize_chained(cp, opts, device=dev)
+        r = ipopt_torch.solve(cn, opts, device=dev)
+        th = torch.zeros_like(cn.params["theta"])
+        th[:, 0, 0] = 1e-3
+        dtheta = {"theta": th}
+        idx = [0, n - 1]
+        _count_reset()
+        k2_in = capture_k2_inputs(lambda: rows.setdefault(n, {}).update(
+            card=(sens.sensitivity_step(cn, opts, r.iterate, dtheta, device=dev),
+                  sens.reduced_hessian(cn, opts, r.iterate, idx, device=dev))))
+        k1_c, k2_c = _counts()
+        rows[n]["k2_launches"] = k2_c
+        rows[n]["status"] = int(r.status)
+        if n == SENS_CPU_N:
+            cpu_n = cn.to("cpu")
+            it_cpu = [v.cpu() for v in r.iterate]
+            s_cpu = sens.sensitivity_step(cpu_n, opts, it_cpu, {"theta": th.cpu()},
+                                          device="cpu")
+            h_cpu = sens.reduced_hessian(cpu_n, opts, it_cpu, idx, device="cpu")
+            s_card, h_card = rows[n]["card"]
+            ds = float((s_card.dx.cpu() - s_cpu.dx).abs().max()
+                       / s_cpu.dx.abs().max().clamp(min=1e-300))
+            dh = float((h_card.cpu() - h_cpu).abs().max() / h_cpu.abs().max())
+            log(f"H4 chained N = {n}: card against CPU, dx rel {ds:.2e}, reduced "
+                f"Hessian rel {dh:.2e} (tol 1e-8)")
+            if ds > 1e-8 or dh > 1e-8:
+                raise SystemExit("H4 chained: card and CPU disagree")
+        else:
+            s_card, h_card = rows[n]["card"]
+            log(f"H4 chained mittelmann_bndry_control_1d({n}, {SENS_CHAIN_V}): status "
+                f"{int(r.status)}, {int(r.iter_count)} iterations; sensitivity_step "
+                f"max |dx| {float(s_card.dx.abs().max()):.3e}, reduced Hessian on the "
+                f"boundary controls {h_card.cpu().numpy().round(8).tolist()}; K2 "
+                f"launches {k2_c} ({sorted({tuple(A.shape) for A in k2_in})}), K1 "
+                f"{k1_c}; card {card}")
+            if int(r.status) != 0 or k2_c == 0 or not bool(torch.isfinite(h_card).all()):
+                raise SystemExit("H4 chained: no K2 launch or a bad reduced Hessian")
+            # K2 on the sensitivity's factorizations (mu = 0 at the solution,
+            # no prior perturbation): their root blocks are nearly singular,
+            # so the forward rule alone cannot hold; MittK2Check's rule (the
+            # forward rule or a backward error within 10x the plain
+            # version's) holds every block
+            from ipopt_torch.linalg import block_ldlt_inv as k2mod
+            check = MittK2Check()
+            for A in k2_in:
+                check(A, *k2mod.block_ldlt_inv(A))
+            k2_check = check.report("H4 chained sensitivity")
+        del k2_in
+    return dict(k1=k1, k1_launches=k1_n, sens_ms=s_ms, first_order_err=err,
+                chained=dict(k2_launches=rows[SENS_CHAIN_N]["k2_launches"], k2=k2_check))
+
+
+def h5_phase(dev, card, family):
+    """H5: the hooks, card against CPU and the reference's recorded values:
+    the custom KKT solver (EighKKT) on hs071; finite differences on the
+    family at B = 512; derivative_test="second-order" on hs071;
+    profiling.solve_timed(hs071) with its report; profiling.trace with
+    K1's kernel events counted in the trace."""
+    import torch
+    import ipopt_torch
+    from ipopt_torch import modellib, profiling
+    from ipopt_torch.deriv_check import check_derivatives, report
+    torch_cases = _torch_cases()
+    kw = dict(print_level=0, tol=1e-8)
+    rows = [ipopt_torch.solve(modellib.hs071(), device=d, custom_kkt_solver=torch_cases
+                              .eigh_kkt("port"), **kw) for d in (dev, "cpu")]
+    ref = _recorded("custom_hs071")
+    got = [(int(r.status), int(r.iter_count), float(r.obj)) for r in rows]
+    log(f"H5 custom KKT solver (eigh) on hs071: card {got[0]}, CPU {got[1]}, "
+        f"reference {tuple(ref)}")
+    if (got[0][:2] != got[1][:2] or got[0][:2] != tuple(ref[:2])
+            or abs(got[0][2] - ref[2]) > 1e-9 * abs(ref[2])):
+        raise SystemExit("H5: the custom solver's solve differs")
+    fd = dict(FD, print_level=0)
+    nlp_b = ipopt_torch.stack_problems(family, ipopt_torch.Options(**fd), device=dev)
+    _count_reset()
+    t0 = time.perf_counter()
+    res = ipopt_torch.solve_batched(nlp_b, device=dev, **fd)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_n, _ = _counts()
+    log(f"H5 finite differences, HS071 family B = {FAMILY_B}: "
+        f"{int((res.status == 0).sum())}/{FAMILY_B} status 0, {wall:.3f} s, K1 "
+        f"launches {k1_n}; card {card}")
+    _lanes_vs_reference("H5 finite differences", res, lambda i: f"fam{i}_fd")
+    rep = check_derivatives(ipopt_torch.canonicalize(
+        modellib.hs071(), ipopt_torch.Options(derivative_test="second-order"),
+        device=dev), ipopt_torch.Options(derivative_test="second-order"), device=dev)
+    for line in report(rep):
+        log("H5 derivative_test second-order on hs071: " + line.rstrip())
+    if not rep.ok:
+        raise SystemExit("H5: the derivative checker failed on hs071")
+    t_res, t_rep = profiling.solve_timed(modellib.hs071(), ipopt_torch.Options(print_level=0),
+                                         print_report=False, device=dev)
+    t_rep.print(out=lambda line: log("H5 solve_timed: " + line))
+    if int(t_res.status) != 0:
+        raise SystemExit("H5: solve_timed did not converge")
+    logdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out",
+                          "h5_trace")
+    with profiling.trace(logdir):
+        with profiling.annotate("hs071"):
+            ipopt_torch.solve(modellib.hs071(), device=dev, print_level=0)
+    with open(os.path.join(logdir, "trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    k1_events = [e for e in events if e.get("cat") == "kernel" and "ldlt" in e.get("name", "")]
+    log(f"H5 profiling.trace: {len(events)} events, {len(k1_events)} K1 kernel events "
+        f"({sorted({e['name'] for e in k1_events})[:2]}); card {card}")
+    if not k1_events:
+        raise SystemExit("H5: the trace holds no K1 kernel event")
+    return dict(fd_k1_launches=k1_n, fd_wall_s=wall, trace_k1_events=len(k1_events),
+                solve_timed_overall_s=t_rep.overall)
+
+
+def slice_h_phases(dev, card, family, f64):
+    """H1-H5; returns their numbers for the kernels line."""
+    phase("H1 float32 factorizations on the four factored backends")
+    h1 = h1_phase(dev, card, family, f64)
+    phase("H2 float32 iterate, refinement_precision double")
+    h2 = h2_phase(dev, card, family)
+    phase("H3 dense-ldlt-blocked")
+    h3 = h3_phase(dev, card)
+    phase("H4 sensitivity")
+    h4 = h4_phase(dev, card)
+    phase("H5 the hooks")
+    h5 = h5_phase(dev, card, family)
+    return dict(h1=h1, h2=h2, h3=h3, h4=h4, h5=h5)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2614,6 +3233,22 @@ def main():
                  f4_lbfgs_banded_lv1_flat_1e5=f["f4"]["banded_lv1_flat_1e5"]["k2_launches"],
                  g4_cg_penalty_chained_lv1_4096_32=(
                      g["g4"]["cg_penalty_chained"]["k2_launches"]))
+    # H1-H5: float32 factorizations, the blocked LDL^T, sensitivity, hooks
+    h = slice_h_phases(dev, card, family, dict(
+        k1_hs071_ms=k1_stats["ms"], k2_chained_level_ms=k2_chained["level_ms"],
+        k2_banded_level_ms=k2_banded["level_ms"], k1_nd_levels=g["g1"]["k1"]["levels"]))
+    f["k1_launches_per_path"].update(
+        h1_dense_hs071_512_float32=h["h1"]["dense"]["k1_launches"],
+        h1_multifrontal_3d_24_float32=h["h1"]["multifrontal"]["k1_launches"],
+        h2_dense_hs071_512_float32_iterate=h["h2"]["dense"]["k1_launches"],
+        h3_blocked_lv1_dense_1000=h["h3"]["dense-ldlt-blocked"]["k1_launches"],
+        h3_dense_ldlt_lv1_dense_1000=h["h3"]["dense-ldlt"]["k1_launches"],
+        h4_sensitivity_hs071_512=h["h4"]["k1_launches"],
+        h5_finite_differences_hs071_512=h["h5"]["fd_k1_launches"])
+    paths.update(h1_chained_lv1_4096_32_float32=h["h1"]["chained"]["launches"],
+                 h1_banded_lv1_flat_1e5_float32=h["h1"]["banded"]["launches"],
+                 h2_chained_lv1_4096_32_float32_iterate=h["h2"]["chained"]["k2_launches"],
+                 h4_sensitivity_mittelmann_1d_2048=h["h4"]["chained"]["k2_launches"])
 
     # 10. kernels line, 11. result line
     phase("kernels line")
@@ -2625,7 +3260,10 @@ def main():
         seeded_ms=k2_stats["seeded_ms"], seeded_max_abs_err=k2_stats["seeded_max_abs_err"],
         device_memory_variant=k2_stats["device_memory_variant"],
         banded_stacks=k2_stats["banded_stacks"],
-        slice_g=dict(cg_penalty_chained=g["g4"]["cg_penalty_chained"]))
+        slice_g=dict(cg_penalty_chained=g["g4"]["cg_penalty_chained"]),
+        slice_h=dict(h1_chained_float32=h["h1"]["chained"],
+                     h1_banded_float32=h["h1"]["banded"], h2_chained=h["h2"]["chained"],
+                     h4_sensitivity_chained=h["h4"]["chained"]))
     k1_entry = dict(k1_stats)
     k1_entry["library_ms"] = k1_entry.pop("ldl_factor_ms")
     k1_entry["launches_per_path"] = {"hs071_512": launches, **{
@@ -2634,6 +3272,12 @@ def main():
     k1_entry["slice_e"] = e1
     k1_entry["slice_f"] = f
     k1_entry["slice_g"] = dict(multifrontal=g["g1"], wide_fronts=g["g2"])
+    k1_entry["slice_h"] = dict(h1_dense_float32=h["h1"]["dense"],
+                               h1_multifrontal_float32=h["h1"]["multifrontal"],
+                               h2_dense=h["h2"]["dense"], h3_blocked=h["h3"],
+                               h4_sensitivity=dict(k1=h["h4"]["k1"],
+                                                   sens_ms=h["h4"]["sens_ms"]),
+                               h5=h["h5"])
     print(json.dumps({"kernels": [{
         "name": "block_ldlt", "route": "cuda",
         "source": "ipopt_torch/csrc/block_ldlt.cu",

@@ -14,7 +14,11 @@ Scenario problems (``ScenarioNLP``, two-stage stochastic programs) run on a
 block-arrow backend: K1 factors the scenario blocks, a Schur complement
 couples them.  ``hessian_approximation="limited-memory"`` (BFGS or SR1)
 works on every backend, by Sherman-Morrison-Woodbury around the backend's
-own factorization.
+own factorization.  ``factorization_dtype="float32"`` factors every
+backend's KKT in float32 (K1 and K2 in float32) and refines against the
+float64 matrix; ``ipopt_torch.sens`` computes parametric sensitivities on
+the solution's factorization, ``ipopt_torch.deriv_check`` checks
+derivatives and ``ipopt_torch.profiling`` times and traces a solve.
 The entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 

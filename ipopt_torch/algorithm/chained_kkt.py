@@ -28,9 +28,10 @@ from ..problem import CanonicalNLP
 from ..types import Iterate, tree_where
 from ..options import Options
 from ..kkt import sigmas
-from ..linalg.block_tridiag import BTDMatrix, BCRFactor, bcr_factorize, bcr_solve
+from ..linalg.block_tridiag import (BTDMatrix, BCRFactor, bcr_factorize, bcr_solve,
+                                    btd_cast)
 from ..chained import scatter_rows
-from .step import refine, perturbation_start
+from .step import refine, refine_dtypes, perturbation_start
 
 
 def _eye(k, like):
@@ -132,7 +133,8 @@ def chained_factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate,
 
     def factor(delta_x, delta_c):
         Kbtd = assemble_btd(nlp, it, AB, Wblocks, delta_x, delta_c)
-        fac = bcr_factorize(Kbtd, pivot_tol=opts.ldlt_pivot_tol,
+        fac = bcr_factorize(btd_cast(Kbtd, opts.factorization_dtype),
+                            pivot_tol=opts.ldlt_pivot_tol,
                             equilibrate=opts.linear_system_scaling == "mc19")
         ok = (fac.num_pos == exp_pos) & (fac.num_neg == exp_neg) & ~fac.singular
         return Kbtd, fac, ok
@@ -168,6 +170,10 @@ def chained_factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate,
 
 
 def chained_solve_refined(Kbtd: BTDMatrix, fac: BCRFactor, rhs, opts: Options):
-    """BCR solve + iterative refinement against the assembled BTD matrices;
-    returns (sol, residual ratio) per lane."""
-    return refine(Kbtd.matvec, lambda r: bcr_solve(fac, r), rhs, opts)
+    """BCR solve + iterative refinement against the assembled BTD matrices,
+    in float64 under ``refinement_precision="double"`` whatever the factor's
+    dtype (``chained_kkt.py:262-333``); returns (sol, residual ratio) per
+    lane."""
+    dts = refine_dtypes(opts, Kbtd.diag.dtype, fac.Ainv_root.dtype)
+    K_a = BTDMatrix(diag=Kbtd.diag.to(dts[1]), sub=Kbtd.sub.to(dts[1]))
+    return refine(K_a.matvec, lambda r: bcr_solve(fac, r), rhs, opts, dtypes=dts)

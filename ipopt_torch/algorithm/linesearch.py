@@ -249,6 +249,9 @@ def line_search(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
                 break  # nothing below changes a lane that is not active
             dsoc = soc_direction(nlp, opts, it, ev, sr.fac, sr.K, mu,
                                  c_soc, dms_soc, alpha_soc)
+            # in the iterate's dtype, whatever the factorization's
+            # (linesearch.py:288-292)
+            dsoc = Iterate(*(v.to(it.x.dtype) for v in dsoc))
             a_soc, _ = fraction_to_boundary(nlp, it, dsoc, tau)
             it_soc = _trial_point(it, dsoc, a_soc, alpha_dual)
             f_s, c_s, d_s, th_s, ph_s = _eval_theta_phi(nlp, opts, it_soc, mu)

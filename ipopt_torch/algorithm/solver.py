@@ -17,9 +17,10 @@ The ``lax.while_loop`` of the reference becomes a Python loop; each step
 advances every running lane of the batch at once (``solve`` is the case
 B = 1), and a lane that has finished is not stepped again.  Both barrier
 strategies (monotone, and adaptive with its oracles, Mehrotra's mode and the
-correctors), warm starts and the time limits are ported; options that
-select features not ported yet raise ``UnsupportedOptionError`` before any
-iteration.
+correctors), warm starts, the time limits and the mixed-precision modes
+(``factorization_dtype``, ``refinement_precision="double"`` over a float32
+iterate) are ported; ``chain_shard=True``, the one option value the port
+lacks, raises ``UnsupportedOptionError`` before any iteration.
 """
 from __future__ import annotations
 
@@ -66,17 +67,11 @@ class UnsupportedOptionError(ValueError):
         self.status = SolverReturn.INVALID_OPTION
 
 
-# (option, supported values) of the features this port has.
+# (option, supported values) of the features this port has: every value of
+# the reference's Options but ``chain_shard=True`` (the sharded chained
+# factorization over several devices, parallel/chain_shard.py).
 _SUPPORTED = (
-    ("hessian_approximation", ("exact", "limited-memory")),
-    ("linear_solver", ("dense-ldlt", "banded-bcr", "multifrontal", "minres")),
-    ("inexact_algorithm", (False, True)),
-    ("line_search_method", ("filter", "penalty", "cg-penalty", "none")),
-    ("refinement_precision", ("same",)),
-    ("factorization_dtype", ("",)),
-    ("gradient_approximation", ("exact",)),
-    ("jacobian_approximation", ("exact",)),
-    ("derivative_test", ("none",)),
+    ("chain_shard", (False,)),
 )
 
 
@@ -305,6 +300,12 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
     it = st.it
     ev = st.ev
     B, dtype, dev = it.x.shape[0], it.x.dtype, it.x.device
+    # refinement_precision="double" (solver.py:324-353): ``ev`` was taken at
+    # the float64 point, and feeds the residuals, the oracles and the KKT
+    # right-hand side; the factorization, line search and restoration read
+    # its view in the iterate's dtype
+    hp = _high_precision(nlp, opts)
+    ev_lo = _model_view(ev, dtype) if hp else ev
     false = torch.zeros((B,), dtype=torch.bool, device=dev)
     inf = torch.full((B,), float("inf"), dtype=dtype, device=dev)
 
@@ -329,7 +330,7 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
         # centering solve and the final step, since rhs(mu) = rhs(0) +
         # mu * (rhs(1) - rhs(0)) and the bound-multiplier recovery is
         # affine in mu too (solver.py:427-491).
-        fr = factorize_any(nlp, opts, it, ev, W, st.mu, st.delta_w_last)
+        fr = factorize_any(nlp, opts, it, ev_lo, W, st.mu, st.delta_w_last)
         parts0 = kkt.condensed_rhs_parts(nlp, it, ev, 0.0, opts.kappa_d)
         parts1 = kkt.condensed_rhs_parts(nlp, it, ev, 1.0, opts.kappa_d)
         dparts = tuple(b - a for a, b in zip(parts0, parts1))
@@ -350,9 +351,9 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
         theta_curr = ev.c.abs().sum(-1) + (ev.d - it.s).abs().sum(-1)
         avg_compl_val, _ = avg_complementarity(nlp, it)
         dual1_avg = ((res0.grad_lag_x.abs().sum(-1) + res0.grad_lag_s.abs().sum(-1))
-                     / max(nlp.n + nlp.mi, 1))
+                     / max(nlp.n + nlp.mi, 1)).to(dtype)
         primal1_avg = ((res0.c.abs().sum(-1) + res0.d_minus_s.abs().sum(-1))
-                       / max(nlp.me + nlp.mi, 1))
+                       / max(nlp.me + nlp.mi, 1)).to(dtype)
         ams, ms = adaptive_mu_update(
             opts, st.ams, MuState(st.mu, st.tau), mu_orc, dual_inf / s_d,
             primal_inf, compl_fn, theta_curr, ev.f, avg_compl_val, dual1_avg,
@@ -377,17 +378,18 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
         if opts.inexact_algorithm:
             from .inexact import inexact_search_direction
             sr, new_tr_omega, inaux = inexact_search_direction(
-                nlp, opts, it, ev, mu, st.delta_w_last, st.tr_omega, st.penalty_nu,
+                nlp, opts, it, ev_lo, mu, st.delta_w_last, st.tr_omega, st.penalty_nu,
                 compute_normal=st.inx_cn, last_ls_count=st.last_ls_count)
         elif opts.linear_solver == "minres":
             from .matrix_free import mf_search_direction
-            sr = mf_search_direction(nlp, opts, it, ev, mu, st.delta_w_last)
+            sr = mf_search_direction(nlp, opts, it, ev_lo, mu, st.delta_w_last)
         elif opts.line_search_method == "cg-penalty":
             from .cg_penalty import cg_search_direction
-            sr, cg_state, cg_aux = cg_search_direction(nlp, opts, it, ev, W, mu,
+            sr, cg_state, cg_aux = cg_search_direction(nlp, opts, it, ev_lo, W, mu,
                                                        st.delta_w_last, st.cg)
         else:
-            sr = compute_search_direction(nlp, opts, it, ev, W, mu, st.delta_w_last)
+            sr = compute_search_direction(nlp, opts, it, ev_lo, W, mu, st.delta_w_last,
+                                          ev_rhs=ev)
 
     # --- Tiny-step detection (BacktrackingLineSearch tiny_step_tol) -------
     eps = torch.finfo(dtype).eps
@@ -434,7 +436,7 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
     inx_cn_next = st.inx_cn
     if opts.inexact_algorithm:
         from .inexact import inexact_line_search, decomposition_next_cn
-        ls, _, nu_low_state = inexact_line_search(nlp, opts, it, ev, sr, mu, tau,
+        ls, _, nu_low_state = inexact_line_search(nlp, opts, it, ev_lo, sr, mu, tau,
                                                   st.penalty_nu, st.nu_low, inaux)
         ls = ls._replace(filter=st.fs)  # the penalty search keeps no filter
         # the adaptive decomposition bit from the accepted step size, and
@@ -445,12 +447,12 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
             inx_cn_next = inx_cn_next | sr.failed
     elif opts.line_search_method == "cg-penalty":
         from .cg_penalty import cg_line_search
-        ls, cg_state = cg_line_search(nlp, opts, it, ev, sr, mu, tau, cg_state, cg_aux)
+        ls, cg_state = cg_line_search(nlp, opts, it, ev_lo, sr, mu, tau, cg_state, cg_aux)
         ls = ls._replace(filter=st.fs,  # the CG method keeps no filter
                          accepted=ls.accepted & ~_multipliers_diverged(
-                             nlp, opts, it, ev, ls, dual_inf))
+                             nlp, opts, it, ev_lo, ls, dual_inf))
     else:
-        ls = line_search(nlp, opts, it, ev, sr, mu, tau, fs_in, st.theta_min,
+        ls = line_search(nlp, opts, it, ev_lo, sr, mu, tau, fs_in, st.theta_min,
                          st.theta_max, corr=corr, penalty_nu=st.penalty_nu)
     lrf_next = ls.last_rej_filter
 
@@ -480,8 +482,8 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
         from .linesearch import _trial_point
         wd_trial = _trial_point(it, sr.step, a_pr, a_du)
         extra_eval = in_wd | ls_failed
-        wd_f, wd_c, wd_d = inf, torch.full_like(ev.c, float("inf")), \
-            torch.full_like(ev.d, float("inf"))
+        wd_f, wd_c, wd_d = inf, torch.full_like(ev_lo.c, float("inf")), \
+            torch.full_like(ev_lo.d, float("inf"))
         wd_theta, wd_phi = inf, inf
         if bool(extra_eval.any()):
             f_w = nlp.eval_f(wd_trial.x)
@@ -575,7 +577,7 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
         if bool(need_resto.any()):
             idx = need_resto.nonzero().squeeze(-1)
             sub = nlp.take(idx)
-            args = (opts, resto_opts, tree_take(it, idx), tree_take(ev, idx),
+            args = (opts, resto_opts, tree_take(it, idx), tree_take(ev_lo, idx),
                     mu[idx], tree_take(fs_entry, idx), ls.theta_curr[idx],
                     ls.phi_curr[idx], ipm_step)
             if backend == "btd":
@@ -685,7 +687,7 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
         new_it = tree_where(ams.just_switched, st.accepted_point, new_it)
 
     # --- CheckConvergence at the NEW point --------------------------------
-    ev_new = evaluate(nlp, new_it.x)
+    ev_new = evaluate(nlp, new_it.x.to(torch.float64) if hp else new_it.x)
 
     # --- Watchdog bookkeeping ---------------------------------------------
     shortened = accepted & (ls.n_backtracks > 1)
@@ -703,8 +705,8 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
     wd_trials_next = torch.where(in_wd & ~wd_done, st.wd_trials + 1,
                                  torch.zeros_like(st.wd_trials))
     norm_type = opts.constraint_violation_norm_type
-    theta_new = _theta(ev_new.c, ev_new.d, new_it.s, norm_type)
-    phi_new = kkt.barrier_obj(nlp, new_it, ev_new.f, mu, opts.kappa_d)
+    theta_new = _theta(ev_new.c, ev_new.d, new_it.s, norm_type).to(dtype)
+    phi_new = kkt.barrier_obj(nlp, new_it, ev_new.f, mu, opts.kappa_d).to(dtype)
     wd_ref_next = tree_where(activate, new_it, st.wd_ref)
     wd_ref_theta_next = torch.where(activate, theta_new, st.wd_ref_theta)
     wd_ref_phi_next = torch.where(activate, phi_new, st.wd_ref_phi)
@@ -718,8 +720,9 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
         theta_acc = _theta(ev_new.c, ev_new.d, new_it.s, norm_type)
         redo = theta_acc < opts.recalc_y_feas_tol
         if bool(redo.any()):
-            y_c2, y_d2 = least_squares_y(nlp, new_it.x, new_it.s, ev_new.grad_f,
-                                         ev_new.J_c, ev_new.J_d, new_it.z_L,
+            y_c2, y_d2 = least_squares_y(nlp, new_it.x, new_it.s,
+                                         ev_new.grad_f.to(dtype), ev_new.J_c.to(dtype),
+                                         ev_new.J_d.to(dtype), new_it.z_L,
                                          new_it.z_U, new_it.v_L, new_it.v_U,
                                          float("inf"))
             new_it = new_it._replace(
@@ -742,7 +745,7 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
         # the same multipliers on both gradients
         s_vec = new_it.x - it.x
         y_vec = ((ev_new.grad_f + kkt.jac_t(nlp, ev_new, new_it.y_c, new_it.y_d))
-                 - (ev.grad_f + kkt.jac_t(nlp, ev, new_it.y_c, new_it.y_d)))
+                 - (ev.grad_f + kkt.jac_t(nlp, ev, new_it.y_c, new_it.y_d))).to(dtype)
         nl_mask = _nonlinear_mask(nlp, opts)
         if nl_mask is not None:
             s_vec, y_vec = s_vec * nl_mask, y_vec * nl_mask
@@ -795,6 +798,29 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
         n_filter_resets=nfr_next, last_rej_filter=lrf_next, accepted_point=st.it,
         ams=ams, eip_active=eip_next, lbfgs=lbfgs, penalty_nu=ls.penalty_nu,
         cg=cg_state, tr_omega=new_tr_omega, nu_low=nu_low_state, inx_cn=inx_cn_next)
+
+
+def _high_precision(nlp: CanonicalNLP, opts: Options) -> bool:
+    """refinement_precision="double" on the dense, chained and banded
+    backends with a direct step (``solver.py:324-337``, ``:1285-1290``): the
+    evaluation at each accepted point runs in float64, so the convergence
+    error and the KKT right-hand side resolve below the float32 iterate's
+    rounding; the factorization and line search stay in its dtype."""
+    return (opts.refinement_precision == "double"
+            and _backend(nlp) in ("dense", "btd", "banded")
+            and not opts.inexact_algorithm
+            and opts.line_search_method != "cg-penalty"
+            and opts.linear_solver not in ("minres", "custom"))
+
+
+def _model_view(ev: Evals, dtype) -> Evals:
+    """The evaluations in the iterate's dtype; a structured backend's
+    transpose products stay at the float64 point (``kkt.jac_t`` casts
+    them to this view's dtype)."""
+    def to(v):
+        return None if v is None else v.to(dtype)
+    return Evals(f=to(ev.f), grad_f=to(ev.grad_f), c=to(ev.c), d=to(ev.d),
+                 J_c=to(ev.J_c), J_d=to(ev.J_d), x=ev.x)
 
 
 def _matrix_free(opts: Options) -> bool:
@@ -992,8 +1018,8 @@ def initial_state(nlp: CanonicalNLP, opts: Options,
         it = it0
     if it0 is not None and opts.warm_start_target_mu > 0.0:
         opts = opts.replace(mu_init=opts.warm_start_target_mu)
-    ev = evaluate(nlp, it.x)
-    theta0 = _theta(ev.c, ev.d, it.s, opts.constraint_violation_norm_type)
+    ev = evaluate(nlp, it.x.to(torch.float64) if _high_precision(nlp, opts) else it.x)
+    theta0 = _theta(ev.c, ev.d, it.s, opts.constraint_violation_norm_type).to(dtype)
     ms = mu_init_state(opts, B, dtype, dev)
     z = torch.zeros((B,), dtype=dtype, device=dev)
     zi = torch.zeros((B,), dtype=torch.int64, device=dev)
@@ -1073,11 +1099,11 @@ def finalize(nlp: CanonicalNLP, opts: Options, st: IPMState) -> SolveResult:
     y = it.x.new_zeros((B, s.m))
     if s.me:
         ei = s.index("eq_idx", dev)
-        g[:, ei] = ev.c / nlp.c_scale + nlp.c_rhs
+        g[:, ei] = (ev.c / nlp.c_scale + nlp.c_rhs).to(g.dtype)
         y[:, ei] = it.y_c * nlp.c_scale / osc
     if s.mi:
         ii = s.index("ineq_idx", dev)
-        g[:, ii] = ev.d / nlp.d_scale
+        g[:, ii] = (ev.d / nlp.d_scale).to(g.dtype)
         y[:, ii] = it.y_d * nlp.d_scale / osc
     zl = it.x.new_zeros((B, s.n_full))
     zu = it.x.new_zeros((B, s.n_full))
@@ -1184,7 +1210,8 @@ def _warm_iterate_from_nlp(problem: NLP, cnlp: CanonicalNLP) -> Iterate:
 
 
 def solve(problem, options: Optional[Options] = None, device=None, it0=None,
-          intermediate_callback=None, **option_kwargs) -> SolveResult:
+          intermediate_callback=None, custom_kkt_solver=None,
+          **option_kwargs) -> SolveResult:
     """Solve one NLP (IpoptApplication::OptimizeTNLP equivalent).
 
     ``problem`` is an ``NLP`` (on the dense backend, or with
@@ -1201,7 +1228,11 @@ def solve(problem, options: Optional[Options] = None, device=None, it0=None,
     inf_pr=, inf_du=, mu=, alpha_pr=, alpha_du=, ls_trials=)`` runs once per
     iteration (with ``callback_curr_iterate`` also ``curr_iterate=`` and
     ``curr_violations=``, dicts of numpy arrays); returning False stops with
-    USER_REQUESTED_STOP.
+    USER_REQUESTED_STOP.  ``custom_kkt_solver`` is an object with the
+    ``factorize`` and ``solve`` halves of the KKT step (the contract is in
+    ``step._custom_solver``); it selects ``linear_solver="custom"``.
+    ``derivative_test`` prints the derivative checker's verdict before the
+    first iteration (``deriv_check.py``).
     """
     opts = prepare_options(options, option_kwargs)
     dev = resolve_device(device)
@@ -1210,6 +1241,11 @@ def solve(problem, options: Optional[Options] = None, device=None, it0=None,
     if intermediate_callback is not None:
         from ..options import register_callback
         opts = opts.replace(callback_token=register_callback(intermediate_callback))
+    if custom_kkt_solver is not None:
+        # the GenKKTSolverInterface hook (solver.py:1528-1533)
+        from ..options import register_custom_kkt
+        opts = opts.replace(linear_solver="custom",
+                            custom_kkt_token=register_custom_kkt(custom_kkt_solver))
     if _matrix_free(opts):
         # no saved factorization to reuse for second-order corrections
         opts = opts.replace(max_soc=0)
@@ -1255,6 +1291,12 @@ def solve(problem, options: Optional[Options] = None, device=None, it0=None,
           and (problem.y0 is not None or problem.z_L0 is not None
                or problem.z_U0 is not None)):
         it0 = _warm_iterate_from_nlp(problem, cnlp)
+    if opts.derivative_test != "none":
+        from ..deriv_check import check_derivatives, report
+        from ..journalist import default_journalist, EJournalLevel, EJournalCategory
+        for line in report(check_derivatives(cnlp, opts, device=dev)):
+            default_journalist().printf(EJournalLevel.J_SUMMARY,
+                                        EJournalCategory.J_NLP, line)
     if opts.print_level >= 4 or (opts.output_file and opts.file_print_level >= 4):
         _print_header()
     t0 = time.perf_counter()
@@ -1262,13 +1304,18 @@ def solve(problem, options: Optional[Options] = None, device=None, it0=None,
     if opts.timing_statistics or opts.print_timing_statistics:
         wall = time.perf_counter() - t0
         if opts.print_level > 0 or opts.print_timing_statistics:
-            c = res.counters
             print(f"OverallAlgorithm....................: {wall:10.3f} (wall)")
             print(f"  per iteration.....................: "
                   f"{wall / max(int(res.iter_count), 1):10.4f}")
-            print(f"Function evaluations (f,g)..........: {int(c.n_obj_evals)}")
-            print(f"Gradient evaluations................: {int(c.n_grad_evals)}")
-            print(f"Hessian evaluations.................: {int(c.n_hess_evals)}")
-            print(f"KKT factorizations..................: {int(c.n_factorizations)}")
-            print(f"KKT backsolve batches...............: {int(c.n_kkt_solves)}")
+            print_counters(res.counters)
     return res
+
+
+def print_counters(c: Counters, out=print) -> None:
+    """The evaluation and KKT counters of print_timing_statistics
+    (IpIpoptApplication.cpp:628-634), summed over the lanes."""
+    out(f"Function evaluations (f,g)..........: {int(c.n_obj_evals.sum())}")
+    out(f"Gradient evaluations................: {int(c.n_grad_evals.sum())}")
+    out(f"Hessian evaluations.................: {int(c.n_hess_evals.sum())}")
+    out(f"KKT factorizations..................: {int(c.n_factorizations.sum())}")
+    out(f"KKT backsolve batches...............: {int(c.n_kkt_solves.sum())}")

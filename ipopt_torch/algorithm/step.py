@@ -25,13 +25,13 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ..types import Iterate, col, tree_where, max_init
+from ..types import Iterate, col, tree_where, max_init, torch_dtype
 from ..problem import CanonicalNLP
 from ..options import Options
 from ..kkt import (Evals, sigmas, assemble_aug_system, condensed_rhs_parts,
                    split_aug_solution, recover_bound_mult_steps,
                    grad_barrier_x, grad_barrier_s, jac_t)
-from ..linalg.ldlt import ldlt, ldlt_solve, LDLTResult
+from ..linalg.ldlt import ldlt, ldlt_blocked, ldlt_solve, LDLTResult
 
 
 class StepResult(NamedTuple):
@@ -58,14 +58,23 @@ def _sym_ruiz_scale(K, sweeps: int = 2):
 
 
 def _factorize(K, opts: Options) -> LDLTResult:
-    """Factorize K (optionally after symmetric equilibration)."""
+    """Factorize K, optionally after symmetric equilibration, in
+    ``factorization_dtype`` (cast after the equilibration, as the reference
+    does): the solves refine against the full-precision K."""
     if opts.linear_system_scaling == "mc19":
         d = _sym_ruiz_scale(K)
         Ks = K * d[:, :, None] * d[:, None, :]
     else:
         d = None
         Ks = K
-    fac = ldlt(Ks, pivot_tol=opts.ldlt_pivot_tol)
+    if opts.factorization_dtype:
+        Ks = Ks.to(torch_dtype(opts.factorization_dtype))
+    if opts.linear_solver == "dense-ldlt-blocked":
+        fac = ldlt_blocked(Ks, block=opts.kkt_block_size, pivot_tol=opts.ldlt_pivot_tol)
+    else:
+        # dense-ldlt, and condensed-cholesky, which the reference accepts and
+        # routes here too (step.py:80-83)
+        fac = ldlt(Ks, pivot_tol=opts.ldlt_pivot_tol)
     if d is not None:
         fac = fac._replace(row_scale=d.to(Ks.dtype))
     return fac
@@ -75,18 +84,29 @@ def _matvec(K, s):
     return torch.matmul(K, s.unsqueeze(-1)).squeeze(-1)
 
 
-def refine(matvec, solve, rhs, opts: Options, improvement: bool = True):
+def refine(matvec, solve, rhs, opts: Options, improvement: bool = True,
+           dtypes=None):
     """Solve K x = rhs per lane with iterative refinement
     (IpPDFullSpaceSolver.cpp:235-345), given the products ``matvec(x)`` = K x
     and the factorized solve ``solve(r)``; returns (sol, residual ratio).
     ``improvement=False`` drops the residual_improvement_factor test, as the
     reference's arrow and low-rank refinements do (``arrow_kkt.py:270-298``,
-    ``lowrank_kkt.py:255-295``)."""
-    sol = solve(rhs)
+    ``lowrank_kkt.py:255-295``).  ``dtypes`` = (model, acc, fac) of the mixed
+    precision modes (``refine_dtypes``): each solve's right-hand side goes to
+    the factor's dtype, the solution accumulates and ``matvec`` forms the
+    residuals in ``acc``, and the result is returned in the model's dtype
+    (``step.py:93-140``); by default all three are rhs's."""
+    model_dt, acc_dt, fac_dt = dtypes or (rhs.dtype,) * 3
+
+    def solve_acc(r):
+        return solve(r.to(fac_dt)).to(acc_dt)
+
+    rhs = rhs.to(acc_dt)
+    sol = solve_acc(rhs)
     B = rhs.shape[0]
     if opts.fast_step_computation:
         # no refinement and no residual check (IpPDFullSpaceSolver.cpp)
-        return sol, rhs.new_zeros((B,))
+        return sol.to(model_dt), rhs.new_zeros((B,), dtype=model_dt)
     rhs_norm = torch.clamp(max_init(rhs.abs(), 0.0), min=1e-30)
 
     def ratio(s):
@@ -101,7 +121,7 @@ def refine(matvec, solve, rhs, opts: Options, improvement: bool = True):
         if not bool(active.any()):
             break
         r = rhs - matvec(sol)
-        sol2 = sol + solve(r)
+        sol2 = sol + solve_acc(r)
         rr2 = ratio(sol2)
         i2 = i + 1
         if imp:
@@ -114,12 +134,23 @@ def refine(matvec, solve, rhs, opts: Options, improvement: bool = True):
         sol = tree_where(active, sol2, sol)
         rr = torch.where(active, rr2, rr)
         i = torch.where(active, i2, i)
-    return sol, rr
+    return sol.to(model_dt), rr.to(model_dt)
+
+
+def refine_dtypes(opts: Options, model_dtype, fac_dtype):
+    """(model, acc, fac) for ``refine``: ``refinement_precision="double"``
+    accumulates in float64, else in the model's dtype (the assembled K's)."""
+    acc = torch.float64 if opts.refinement_precision == "double" else model_dtype
+    return model_dtype, acc, fac_dtype
 
 
 def solve_with_refinement(K, fac: LDLTResult, rhs, opts: Options):
-    """``refine`` on the dense augmented matrices K (B, N, N)."""
-    return refine(lambda s: _matvec(K, s), lambda r: ldlt_solve(fac, r), rhs, opts)
+    """``refine`` on the dense augmented matrices K (B, N, N); the residuals
+    are taken against K in the accumulation dtype, whatever the factor's."""
+    dts = refine_dtypes(opts, K.dtype, fac.L.dtype)
+    K_a = K.to(dts[1])
+    return refine(lambda s: _matvec(K_a, s), lambda r: ldlt_solve(fac, r), rhs,
+                  opts, dtypes=dts)
 
 
 def perturbation_start(opts: Options, delta_w_last):
@@ -239,12 +270,41 @@ def compute_hessian(nlp: CanonicalNLP, it: Iterate):
     return nlp.eval_lag_hess(it.x, it.y_c, it.y_d)
 
 
+def _custom_solver(opts: Options):
+    """The object registered for ``linear_solver="custom"`` (GenKKTSolver
+    Interface / GenAugSystemSolver, ``step.py:300-306, 345-351``).  The
+    contract, batch-first like the rest of the port:
+
+    - ``factorize(nlp, opts, it, ev, hess, mu, delta_w_last)``: every tensor
+      has a leading lane axis B (``it.x`` (B, n), ``mu`` (B,), ``hess`` the
+      backend-shaped Hessian); returns an object with the fields of
+      ``FactorResult``: ``fac`` and ``K`` (anything its own ``solve`` reads),
+      and (B,) tensors ``delta_x``, ``delta_c``, ``delta_w_last``, ``failed``
+      (bool) and ``num_trials`` (int).  The inertia-correction retry is the
+      object's to do.
+    - ``solve(nlp, opts, fac, K, parts)``: ``parts`` = (r_x (B, n), r_s (B,
+      mi), r_c (B, me), r_d (B, mi)); returns ((dx, ds, dy_c, dy_d),
+      residual_ratio (B,)).
+    """
+    from ..options import CUSTOM_KKT_REGISTRY
+    try:
+        return CUSTOM_KKT_REGISTRY[opts.custom_kkt_token]
+    except KeyError:
+        raise ValueError("linear_solver='custom' needs a solver: pass "
+                         "solve(..., custom_kkt_solver=obj)") from None
+
+
 def factorize_any(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
                   hess, mu, delta_w_last, delta_cd_override=None):
     """Backend dispatch of the inertia-corrected factorization; ``hess`` is
     backend-shaped, or a ``LowRankW`` (limited-memory Hessian).
     ``delta_cd_override`` replaces the mu-based Jacobian regularization
-    (the cg-penalty method's; the structured backends still floor it)."""
+    (the cg-penalty method's; the structured backends still floor it).
+    ``linear_solver="custom"`` hands the whole factorization, retry loop
+    included, to the registered object (``custom_kkt_solver``)."""
+    if opts.linear_solver == "custom":
+        return _custom_solver(opts).factorize(nlp, opts, it, ev, hess, mu,
+                                              delta_w_last)
     from .quasi_newton import LowRankW
     be = _backend(nlp)
     if isinstance(hess, LowRankW):
@@ -278,6 +338,8 @@ def factorize_any(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
 def solve_any(nlp: CanonicalNLP, opts: Options, fac, K, parts):
     """Solve the factorized augmented system for the four RHS blocks;
     returns ((dx, ds, dy_c, dy_d), residual_ratio)."""
+    if opts.linear_solver == "custom":
+        return _custom_solver(opts).solve(nlp, opts, fac, K, parts)
     from .lowrank_kkt import LowRankKKT, lowrank_solve_refined
     from .lowrank_struct import StructLowRankKKT, lowrank_struct_solve_refined
     if isinstance(fac, LowRankKKT):
@@ -316,11 +378,15 @@ def direction_from_parts(nlp: CanonicalNLP, it: Iterate, xsplit, mu, failed):
 
 
 def compute_search_direction(nlp: CanonicalNLP, opts: Options, it: Iterate,
-                             ev: Evals, W, mu, delta_w_last) -> StepResult:
+                             ev: Evals, W, mu, delta_w_last,
+                             ev_rhs: Evals = None) -> StepResult:
     """Assemble + factorize (with inertia correction) + solve + recover
-    duals, for every lane."""
+    duals, for every lane.  ``ev_rhs``: the float64 evaluations the
+    right-hand side is formed from under ``refinement_precision="double"``;
+    the factorization uses ``ev``."""
     fr = factorize_any(nlp, opts, it, ev, W, mu, delta_w_last)
-    parts = condensed_rhs_parts(nlp, it, ev, mu, opts.kappa_d)
+    parts = condensed_rhs_parts(nlp, it, ev if ev_rhs is None else ev_rhs, mu,
+                                opts.kappa_d)
     xsplit, rr = solve_any(nlp, opts, fr.fac, fr.K, parts)
     failed = fr.failed
     if (opts.neg_curv_test_tol > 0 and _backend(nlp) == "dense"

@@ -54,7 +54,9 @@ def canonical_from_arrays(struct_fields: Mapping[str, Any],
     field name), with torch callables ``f(x_full, params)`` and
     ``g(x_full, params)``.  Unbatched leaves (x0 of rank 1) get a batch axis
     of one."""
-    struct = CanonicalStructure(**{k: struct_fields[k] for k in _STRUCT_FIELDS})
+    struct = CanonicalStructure(
+        **{k: struct_fields[k] for k in _STRUCT_FIELDS},
+        **{k: float(struct_fields.get(k, 0.0)) for k in ("fd_grad_eps", "fd_jac_eps")})
     batched = np.asarray(arrays["x0"]).ndim == 2
     vals = {}
     for name in ARRAY_FIELDS:
@@ -128,6 +130,22 @@ def iterate_from_arrays(blocks: Sequence[Any], device="cpu",
     axis of one."""
     batched = np.asarray(blocks[0]).ndim == 2
     return Iterate(*(_tensor(b, device, dtype, batched) for b in blocks))
+
+
+def params_from_arrays(params, device="cpu", dtype=torch.float64):
+    """A port ``params`` tree (dicts, tuples and lists of (B, ...) tensors)
+    from a reference ``params`` pytree of one instance, as numpy leaves:
+    every leaf gets a batch axis of one."""
+    return _tensor_tree(params, device, dtype, batched=False)
+
+
+def sensitivity_from_arrays(blocks: Sequence[Any], device="cpu",
+                            dtype=torch.float64):
+    """A port ``sens.SensitivityResult`` from the eight blocks (dx, ds, dy_c,
+    dy_d, dz_L, dz_U, dv_L, dv_U) of a reference one, as numpy; rank-1
+    blocks get a batch axis of one."""
+    from .sens import SensitivityResult
+    return SensitivityResult(*iterate_from_arrays(blocks, device, dtype))
 
 
 _BANDED_INTS = ("n", "mi", "me", "N", "b", "nb", "n_colors_j", "n_colors_h", "n_pad",

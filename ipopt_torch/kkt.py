@@ -23,8 +23,8 @@ from .problem import CanonicalNLP
 
 
 def _mtv(J, y):
-    """J^T y per lane: J (B, m, n), y (B, m) -> (B, n)."""
-    return torch.matmul(y.unsqueeze(-2), J).squeeze(-2)
+    """J^T y per lane: J (B, m, n), y (B, m) -> (B, n), in J's dtype."""
+    return torch.matmul(y.to(J.dtype).unsqueeze(-2), J).squeeze(-2)
 
 
 class Evals(NamedTuple):
@@ -45,6 +45,10 @@ class Evals(NamedTuple):
 
 def evaluate(nlp: CanonicalNLP, x) -> Evals:
     if nlp.chain is not None:
+        if nlp.struct.fd_jac_eps:
+            raise NotImplementedError(
+                "jacobian_approximation='finite-difference-values' needs "
+                "the dense backend (structured backends are matrix-free)")
         c, d = nlp.eval_cd(x)
         return gradient_evals(nlp, x, nlp.eval_f(x), c, d)
     f, grad_f, c, d, J_c, J_d = nlp.eval_all(x)
@@ -63,7 +67,10 @@ def gradient_evals(nlp: CanonicalNLP, x, f, c, d) -> Evals:
 def jac_t(nlp: CanonicalNLP, ev: Evals, y_c, y_d):
     """J_c^T y_c + J_d^T y_d per lane at the point of ``ev``."""
     if nlp.chain is not None:
-        return nlp.eval_jac_t(ev.x, y_c, y_d)
+        # in the evaluation point's dtype, returned in ``ev``'s (a float32
+        # view of float64 evaluations keeps the float64 point)
+        x = ev.x
+        return nlp.eval_jac_t(x, y_c.to(x.dtype), y_d.to(x.dtype)).to(ev.grad_f.dtype)
     return _mtv(ev.J_c, y_c) + _mtv(ev.J_d, y_d)
 
 
@@ -241,10 +248,11 @@ def assemble_aug_system(W, J_c, J_d, sigma: SigmaBlocks,
 def condensed_rhs_parts(nlp: CanonicalNLP, it: Iterate, ev: Evals, mu,
                         kappa_d=1e-5):
     """The four (negated) RHS blocks of the augmented system:
-    (-r_x, -r_s, -c, -(d - s))."""
+    (-r_x, -r_s, -c, -(d - s)), in the evaluations' dtype (float64 ones
+    over a float32 iterate under refinement_precision="double")."""
     r_x = (grad_barrier_x(nlp, it, ev.grad_f, mu, kappa_d)
            + jac_t(nlp, ev, it.y_c, it.y_d))
-    r_s = grad_barrier_s(nlp, it, mu, kappa_d) - it.y_d
+    r_s = (grad_barrier_s(nlp, it, mu, kappa_d) - it.y_d).to(ev.c.dtype)
     return -r_x, -r_s, -ev.c, -(ev.d - it.s)
 
 

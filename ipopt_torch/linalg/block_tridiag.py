@@ -28,6 +28,7 @@ import torch
 from .block_ldlt import block_ldlt
 from .block_ldlt_inv import block_ldlt_inv
 from .ldlt import tri_solve_unit_lower, _safe
+from ..types import torch_dtype
 
 
 def _t(M):
@@ -200,6 +201,16 @@ def btd_apply_scale(K: BTDMatrix, d) -> BTDMatrix:
     dn = _next_row_scale(d)
     return BTDMatrix(diag=K.diag * d[..., :, None] * d[..., None, :],
                      sub=K.sub * dn[..., :, None] * d[..., None, :])
+
+
+def btd_cast(K: BTDMatrix, dtype_str: str) -> BTDMatrix:
+    """The blocks in ``factorization_dtype`` ("" keeps them,
+    ``block_tridiag.py:459-467``); the caller keeps the full-precision K
+    for the refinement."""
+    if not dtype_str:
+        return K
+    dt = torch_dtype(dtype_str)
+    return BTDMatrix(diag=K.diag.to(dt), sub=K.sub.to(dt))
 
 
 def _gj_inv(D):

@@ -63,6 +63,49 @@ def ldlt(A: torch.Tensor, pivot_tol: float = 0.0) -> LDLTResult:
 ldlt.calls = 0
 
 
+def ldlt_blocked(A: torch.Tensor, block: int = 128,
+                 pivot_tol: float = 0.0) -> LDLTResult:
+    """Blocked right-looking LDL^T of every lane of A (B, N, N)
+    (``linear_solver="dense-ldlt-blocked"``, ``ipopt_tpu/linalg/ldlt.py:
+    151-220``): N padded with identity to a multiple of ``block``, then per
+    panel j, in the reference's order: the diagonal block's LDL^T (K1 at
+    (B, block, block), one launch per panel; the reference runs a jnp loop
+    there, so these launches are the port's choice), the panel below it by a
+    triangular solve (``tri_solve_blocks``: substitution on the CPU,
+    ``torch.linalg.solve_triangular`` on the card), and the trailing update
+    by ``torch.matmul`` (TF32 must stay off for float32).  A pivot K1 guards
+    to +-tiny adds nothing to the trailing update, as the reference's raw
+    zero pivot does.  ``ldlt.calls`` counts it as one factorization."""
+    B, n, _ = A.shape
+    if n == 0 or n <= block:
+        return ldlt(A, pivot_tol)
+    ldlt.calls += 1
+    npad = -(-n // block) * block
+    M = A.new_zeros((B, npad, npad))
+    M[:, :n, :n] = A
+    if npad != n:
+        pad = torch.arange(n, npad, device=A.device)
+        M[:, pad, pad] = 1.0
+    tiny = torch.finfo(A.dtype).tiny
+    for r0 in range(0, npad, block):
+        r1 = r0 + block
+        Lkk, dk = block_ldlt(M[:, r0:r1, r0:r1].contiguous())
+        M[:, r0:r1, r0:r1] = Lkk + torch.diag_embed(dk) - torch.eye(
+            block, dtype=A.dtype, device=A.device)
+        if r1 == npad:
+            break
+        # X Lkk^T = B  <=>  Lkk X^T = B^T
+        Xt = tri_solve_blocks(Lkk, M[:, r1:, r0:r1].transpose(-1, -2))
+        Lpan = Xt.transpose(-1, -2) / _safe(dk)[:, None, :]
+        d_upd = torch.where(dk.abs() <= tiny, torch.zeros_like(dk), dk)
+        M[:, r1:, r1:] -= torch.matmul(Lpan * d_upd[:, None, :],
+                                       Lpan.transpose(-1, -2))
+        M[:, r1:, r0:r1] = Lpan
+    d = M.diagonal(dim1=1, dim2=2)[:, :n].clone()
+    L = torch.tril(M[:, :n, :n], -1) + torch.eye(n, dtype=A.dtype, device=A.device)
+    return _finish(L, d, pivot_tol)
+
+
 def _safe(d):
     tiny = torch.full_like(d, torch.finfo(d.dtype).tiny)
     return torch.where(d.abs() > tiny, d, torch.where(d >= 0, tiny, -tiny))
@@ -94,6 +137,22 @@ def _subst_bwd(L, X):
 def tri_solve_unit_lower(L, B, transpose: bool = False):
     """Solve L Y = B (or L^T Y = B) for unit-lower-triangular L, per lane."""
     return _subst_bwd(L, B) if transpose else _subst_fwd(L, B)
+
+
+def tri_solve_blocks(L, Bm, transpose: bool = False):
+    """Unit-lower triangular solves per block: the substitution on the CPU,
+    the library's triangular solve on the card (the reference's split,
+    ``ipopt_tpu/linalg/ldlt.py:58-74``).  L (..., p, p), Bm (..., p, k)."""
+    if L.device.type == "cpu":
+        shape = Bm.shape
+        out = tri_solve_unit_lower(L.reshape((-1,) + L.shape[-2:]),
+                                   Bm.reshape((-1,) + shape[-2:]),
+                                   transpose=transpose)
+        return out.reshape(shape)
+    if transpose:
+        return torch.linalg.solve_triangular(L.transpose(-1, -2), Bm, upper=True,
+                                             unitriangular=True)
+    return torch.linalg.solve_triangular(L, Bm, upper=False, unitriangular=True)
 
 
 def ldlt_solve(fac: LDLTResult, b: torch.Tensor) -> torch.Tensor:

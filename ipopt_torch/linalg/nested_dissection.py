@@ -46,7 +46,7 @@ import torch
 
 from ..types import cached_tensor
 from .block_tridiag import batched_block_ldlt, _block_inertia_counts
-from .ldlt import tri_solve_unit_lower, _safe
+from .ldlt import tri_solve_blocks, _safe
 
 _I32 = np.int32
 
@@ -596,22 +596,6 @@ class NDFactor(NamedTuple):
     singular: Any
 
 
-def _tri(L, Bm, transpose=False):
-    """Unit-lower triangular solves per block: the substitution on the CPU,
-    the library's triangular solve on the card (the reference's split,
-    ``ipopt_tpu/linalg/ldlt.py:58-74``).  L (..., p, p), Bm (..., p, k)."""
-    if L.device.type == "cpu":
-        shape = Bm.shape
-        out = tri_solve_unit_lower(L.reshape((-1,) + L.shape[-2:]),
-                                   Bm.reshape((-1,) + shape[-2:]),
-                                   transpose=transpose)
-        return out.reshape(shape)
-    if transpose:
-        return torch.linalg.solve_triangular(L.transpose(-1, -2), Bm, upper=True,
-                                             unitriangular=True)
-    return torch.linalg.solve_triangular(L, Bm, upper=False, unitriangular=True)
-
-
 def nd_assemble(nlp, aux, info: NDInfo, it, j_vals, h_vals, delta_x, delta_c):
     """The value vector gathered into per-level fronts (B, n_d, f, f): the
     duplicates of a slot summed through ``asm_src``, then the occupied
@@ -696,7 +680,7 @@ def nd_factorize(info: NDInfo, aux, fronts, pivot_tol: float = 0.0) -> NDFactor:
         po, ne, ze = _block_inertia_counts(d1, pivot_tol)
         num_pos, num_neg, num_zero = num_pos + po, num_neg + ne, num_zero + ze
         if lv.u:
-            Y = _tri(L11, F[:, :, :p, p:])                       # (B, n, p, u)
+            Y = tri_solve_blocks(L11, F[:, :, :p, p:])               # (B, n, p, u)
             Yd = Y / _safe(d1)[..., None]
             L21 = Yd.transpose(-1, -2)
             update = F[:, :, p:, p:] - torch.matmul(Y.transpose(-1, -2), Yd)
@@ -724,7 +708,7 @@ def nd_solve(info: NDInfo, aux, fac: NDFactor, rhs):
     zs = []
     for li, lv in enumerate(info.levels):
         b1 = rhs_e[:, aux[f"elim_gid{li}"]]                   # (B, n_d, p)
-        z1 = _tri(fac.L11[li], b1[..., None])[..., 0]
+        z1 = tri_solve_blocks(fac.L11[li], b1[..., None])[..., 0]
         zs.append(z1)
         if lv.u:
             upd = -torch.matmul(fac.L21[li], z1[..., None])[..., 0]
@@ -738,7 +722,7 @@ def nd_solve(info: NDInfo, aux, fac: NDFactor, rhs):
             x_bd = sol_e[:, aux[f"bd_gid{li}"]]               # (B, n_d, u)
             zhat = zhat - torch.matmul(fac.L21[li].transpose(-1, -2),
                                        x_bd[..., None])[..., 0]
-        x1 = _tri(fac.L11[li], zhat[..., None], transpose=True)[..., 0]
+        x1 = tri_solve_blocks(fac.L11[li], zhat[..., None], transpose=True)[..., 0]
         sol_e[:, aux[f"elim_gid{li}"].reshape(-1)] = x1.reshape(Bt, -1)
     return sol_e[:, :info.N]
 
@@ -762,8 +746,13 @@ def nd_matvec(info: NDInfo, aux, fronts, x):
 def nd_solve_refined(info: NDInfo, aux, fronts, fac: NDFactor, rhs, opts):
     """Solve + iterative refinement against the assembled fronts, the
     reference's loop (min/max refinement steps and ``residual_ratio_max``,
-    no improvement test); returns (sol, residual ratio) per lane."""
-    from ..algorithm.step import refine
-    return refine(lambda s: nd_matvec(info, aux, fronts, s),
+    no improvement test), against float64 fronts under
+    ``refinement_precision="double"`` whatever the factor's dtype
+    (``nested_dissection.py:683-721``); returns (sol, residual ratio) per
+    lane."""
+    from ..algorithm.step import refine, refine_dtypes
+    dts = refine_dtypes(opts, fronts[0].dtype, fac.L11[0].dtype)
+    fronts_a = tuple(F.to(dts[1]) for F in fronts)
+    return refine(lambda s: nd_matvec(info, aux, fronts_a, s),
                   lambda r: nd_solve(info, aux, fac, r), rhs, opts,
-                  improvement=False)
+                  improvement=False, dtypes=dts)

@@ -79,6 +79,11 @@ class CanonicalStructure:
     free_idx: np.ndarray
     fixed_idx: np.ndarray
     fixed_treatment: str
+    # gradient_approximation / jacobian_approximation =
+    # "finite-difference-values": forward differences with this perturbation
+    # (0 = exact AD; ``problem.py:86-99``)
+    fd_grad_eps: float = 0.0
+    fd_jac_eps: float = 0.0
     _index_cache: Dict[Any, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False)
 
@@ -86,7 +91,7 @@ class CanonicalStructure:
         return (self.n_full, self.n, self.m, self.me, self.mi,
                 self.eq_idx.tobytes(), self.ineq_idx.tobytes(),
                 self.free_idx.tobytes(), self.fixed_idx.tobytes(),
-                self.fixed_treatment)
+                self.fixed_treatment, self.fd_grad_eps, self.fd_jac_eps)
 
     def __hash__(self):
         return hash(self._key())
@@ -239,7 +244,22 @@ class CanonicalNLP(NamedTuple):
         return vmap(self.f1)(x, self.lane())
 
     def eval_grad_f(self, x):
+        eps = self.struct.fd_grad_eps
+        if eps:
+            # forward differences (B, n) (IpTNLPAdapter.cpp:1355-1385)
+            return self._fd_columns(lambda z, ln: self.f1(z, ln)[None], x, eps)[:, 0]
         return vmap(grad(self.f1))(x, self.lane())
+
+    def _fd_columns(self, fn, x, eps):
+        """(fn(x + eps e_j) - fn(x)) / eps for every j, per lane: fn maps one
+        instance's x to a 1-D tensor; returns (B, len, n) (the reference's
+        vmapped seeds, ``problem.py:182-190, 217-238``)."""
+        lane = self.lane()
+        X = x[:, None, :] + eps * torch.eye(x.shape[1], dtype=x.dtype,
+                                            device=x.device)
+        F0 = vmap(fn)(x, lane)                                   # (B, m)
+        F = vmap(vmap(fn, in_dims=(0, None)))(X, lane)           # (B, n, m)
+        return ((F - F0[:, None, :]) / eps).transpose(1, 2)
 
     def eval_cd(self, x):
         return vmap(self.cd1)(x, self.lane())
@@ -260,6 +280,10 @@ class CanonicalNLP(NamedTuple):
         if self.struct.m == 0:
             z = x.new_zeros((B, 0, n))
             return z, z
+        if self.struct.fd_jac_eps:
+            J = self._fd_columns(lambda z, ln: torch.cat(self.cd1(z, ln)), x,
+                                 self.struct.fd_jac_eps)
+            return J[:, :self.struct.me], J[:, self.struct.me:]
         J_c, J_d = vmap(jacfwd(self.cd1))(x, self.lane())
         return J_c.reshape(B, self.struct.me, n), J_d.reshape(B, self.struct.mi, n)
 
@@ -279,7 +303,10 @@ class CanonicalNLP(NamedTuple):
 
     def eval_all(self, x):
         """f, grad_f, c, d, J_c, J_d at x."""
-        gf, f = vmap(grad_and_value(self.f1))(x, self.lane())
+        if self.struct.fd_grad_eps:
+            f, gf = self.eval_f(x), self.eval_grad_f(x)
+        else:
+            gf, f = vmap(grad_and_value(self.f1))(x, self.lane())
         c, d = self.eval_cd(x)
         J_c, J_d = self.eval_jac_cd(x)
         return f, gf, c, d, J_c, J_d
@@ -294,6 +321,16 @@ def _as_np(v, size=None, default=None):
     if size is not None:
         a = np.broadcast_to(a, (size,)).copy()
     return a
+
+
+def _tensor_leaves(tree):
+    """A parameter tree with every leaf (tensor, numpy array or number) as a
+    tensor, as the reference's ``jnp.asarray`` over its leaves."""
+    if isinstance(tree, dict):
+        return {k: _tensor_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(_tensor_leaves(v) for v in tree)
+    return torch.as_tensor(tree)
 
 
 def _constant_surrogates(f2, g2, x0, eq_mask, opts: Options, dtype):
@@ -375,7 +412,7 @@ def canonicalize(nlp: NLP, options: Optional[Options] = None, dtype=None,
     else:
         f2, g2 = nlp.f, nlp.g
         params = tree_map(lambda v: v.to(device=device, dtype=dtype)[None],
-                          tree_map(torch.as_tensor, nlp.params))
+                          _tensor_leaves(nlp.params))
     g_L_user, g_U_user = nlp.g_L, nlp.g_U
 
     def _num_g(gfun):
@@ -442,7 +479,11 @@ def canonicalize(nlp: NLP, options: Optional[Options] = None, dtype=None,
     struct = CanonicalStructure(
         n_full=n_full, n=n, m=m, me=me, mi=mi, eq_idx=eq_idx,
         ineq_idx=ineq_idx, free_idx=free_idx, fixed_idx=fixed_idx,
-        fixed_treatment=treatment)
+        fixed_treatment=treatment,
+        fd_grad_eps=(opts.findiff_perturbation if opts.gradient_approximation
+                     == "finite-difference-values" else 0.0),
+        fd_jac_eps=(opts.findiff_perturbation if opts.jacobian_approximation
+                    == "finite-difference-values" else 0.0))
 
     x_fixed = np.where(fixed_mask, x_L, 0.0) if len(fixed_idx) else np.zeros(n_full)
 

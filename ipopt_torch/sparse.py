@@ -47,7 +47,7 @@ from torch.func import grad, hessian, jacfwd, jvp, vmap
 from .options import Options
 from .problem import NLP, CanonicalNLP, canonicalize
 from .scaling import grad_scale_factor
-from .types import Iterate, cached_tensor, max_init, tree_map
+from .types import Iterate, cached_tensor, max_init, torch_dtype, tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -663,7 +663,7 @@ def banded_factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate, h_vals, 
     conditioning where the elimination lost the -delta_c pivots.
     ``delta_cd_override`` (B,) replaces the mu-based regularization value
     (the cg-penalty method's); the floor stays."""
-    from .linalg.block_tridiag import bcr_factorize
+    from .linalg.block_tridiag import bcr_factorize, btd_cast
     exp_pos, exp_neg = expected_inertia_banded(nlp)
     j_vals = jacobian_values(nlp, it.x)
     zero = torch.zeros_like(mu)
@@ -671,7 +671,8 @@ def banded_factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate, h_vals, 
 
     def factor(dxv, dcv):
         Kb = add_diag_deltas(nlp, K_base, dxv, dcv)
-        fac = bcr_factorize(Kb, pivot_tol=opts.ldlt_pivot_tol,
+        fac = bcr_factorize(btd_cast(Kb, opts.factorization_dtype),
+                            pivot_tol=opts.ldlt_pivot_tol,
                             equilibrate=opts.linear_system_scaling == "mc19")
         ok = (fac.num_pos == exp_pos) & (fac.num_neg == exp_neg) & ~fac.singular
         return Kb, fac, ok
@@ -755,7 +756,10 @@ def nd_factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate, h_vals, mu,
 
     def factor(dxv, dcv):
         Kf = nd_add_diag_deltas(info, aux, K_base, dxv, dcv)
-        fac = nd_factorize(info, aux, Kf, pivot_tol=opts.ldlt_pivot_tol)
+        fd = opts.factorization_dtype
+        # the fronts factored in factorization_dtype (sparse.py:931-935)
+        fac = nd_factorize(info, aux, tuple(F.to(torch_dtype(fd)) for F in Kf)
+                           if fd else Kf, pivot_tol=opts.ldlt_pivot_tol)
         ok = (fac.num_pos == exp_pos) & (fac.num_neg == exp_neg) & ~fac.singular
         return Kf, fac, ok
 

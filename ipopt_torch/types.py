@@ -202,3 +202,8 @@ def cached_tensor(info, name: str, device) -> torch.Tensor:
         t = torch.as_tensor(np.ascontiguousarray(getattr(info, name)), device=device)
         info._cache[key] = t
     return t
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of an option value ("float32" or "float64")."""
+    return {"float32": torch.float32, "float64": torch.float64}[name]

@@ -31,6 +31,7 @@ from ipopt_torch.algorithm import chained_kkt as port_ckkt
 from ipopt_torch.linalg import block_tridiag as port_bt
 from ipopt_torch.problem import CanonicalNLP
 from test_torch_core import _random_iterate
+import torch_cases
 
 torch.set_num_threads(1)
 
@@ -208,22 +209,23 @@ LV1_64 = dict(status=0, iters=7, obj=6.232458632437091)
 
 @pytest.mark.parametrize("n", [64, 60])
 def test_lv1_solve_matches_reference(n):
-    rows_r, cb_r = _trace()
-    res_r = ipopt_tpu.solve(ref_models.luksan_vlcek1(n, 4), print_level=0,
-                            intermediate_callback=cb_r, **OPTS)
+    """The port's solve against the reference's, recorded with its
+    per-iteration trace and final x (tests/torch_cases.py "lv1_<n>_trace",
+    tools/torch_reference_values.py)."""
+    ref = torch_cases.recorded()[f"lv1_{n}_trace"]
     rows_p, cb_p = _trace()
     res_p = ipopt_torch.solve(modellib.luksan_vlcek1(n, 4), device="cpu",
                               print_level=0, intermediate_callback=cb_p, **OPTS)
-    assert int(res_p.status) == int(res_r.status) == 0
-    assert int(res_p.iter_count) == int(res_r.iter_count)
-    assert int(res_p.counters.n_factorizations) == int(res_r.counters.n_factorizations)
+    assert int(res_p.status) == ref["status"] == 0
+    assert int(res_p.iter_count) == ref["iter_count"]
+    assert int(res_p.counters.n_factorizations) == ref["n_factorizations"]
     assert res_p.batched_factorizations == int(res_p.counters.n_factorizations)
-    t_p, t_r = np.array(rows_p), np.array(rows_r)
+    t_p, t_r = np.array(rows_p), np.array(ref["trace"])[:, :6]
     np.testing.assert_array_equal(t_p[:, 0], t_r[:, 0])
     np.testing.assert_allclose(t_p[:, 1:], t_r[:, 1:], rtol=1e-7, atol=1e-10)
-    np.testing.assert_allclose(res_p.x.numpy(), np.asarray(res_r.x), rtol=1e-9,
+    np.testing.assert_allclose(res_p.x.numpy(), np.asarray(ref["x"]), rtol=1e-9,
                                atol=1e-12)
-    np.testing.assert_allclose(float(res_p.obj), float(res_r.obj), rtol=1e-9)
+    np.testing.assert_allclose(float(res_p.obj), ref["obj"], rtol=1e-9)
     if n == 64:
         assert int(res_p.iter_count) == LV1_64["iters"]
         np.testing.assert_allclose(float(res_p.obj), LV1_64["obj"], rtol=1e-12)

@@ -109,7 +109,10 @@ SLICE_F_MODULES = ("ipopt_torch.parallel.scenario", "ipopt_torch.algorithm.arrow
                    # slice G
                    "ipopt_torch.linalg.nested_dissection",
                    "ipopt_torch.algorithm.matrix_free", "ipopt_torch.algorithm.inexact",
-                   "ipopt_torch.algorithm.cg_penalty")
+                   "ipopt_torch.algorithm.cg_penalty",
+                   # slice H
+                   "ipopt_torch.sens", "ipopt_torch.deriv_check",
+                   "ipopt_torch.profiling")
 
 
 def test_port_imports_no_jax():
@@ -267,13 +270,16 @@ def test_solve_without_device_needs_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("opt", [
-    dict(derivative_test="first-order"), dict(jacobian_approximation="finite-difference-values"),
-    dict(linear_solver="dense-ldlt-blocked"), dict(linear_solver="custom"),
-    dict(refinement_precision="double"),
+    dict(), dict(derivative_test="first-order"),
+    dict(jacobian_approximation="finite-difference-values"),
+    dict(linear_solver="dense-ldlt-blocked"), dict(refinement_precision="double"),
     dict(gradient_approximation="finite-difference-values")])
 def test_unported_option_rejected(opt):
+    """chain_shard=True, the one option the port still lacks, is refused
+    whatever the other options."""
     with pytest.raises(UnsupportedOptionError):
-        ipopt_torch.solve(ipopt_torch.modellib.hs071(), device="cpu", **opt)
+        ipopt_torch.solve(ipopt_torch.modellib.hs071(), device="cpu",
+                          chain_shard=True, **opt)
 
 
 RESTO_CASES = {

@@ -187,17 +187,10 @@ def test_timing_statistics_prints(capsys):
 
 
 def test_only_the_listed_options_are_refused():
-    """_SUPPORTED refuses the features later slices bring, nothing else."""
-    refused = dict(linear_solver="dense-ldlt-blocked",
-                   derivative_test="first-order",
-                   gradient_approximation="finite-difference-values",
-                   jacobian_approximation="finite-difference-values",
-                   factorization_dtype="float32", refinement_precision="double")
-    for name, value in refused.items():
-        with pytest.raises(UnsupportedOptionError):
-            check_supported(ipopt_torch.Options(**{name: value}))
+    """_SUPPORTED refuses only chain_shard=True (the sharded chained
+    factorization, a later slice); every other value is accepted."""
     with pytest.raises(UnsupportedOptionError):
-        check_supported(ipopt_torch.Options(linear_solver="custom"))
+        check_supported(ipopt_torch.Options(chain_shard=True))
     for kw in (dict(mu_strategy="adaptive"), dict(mehrotra_algorithm=True),
                dict(corrector_type="primal-dual"), dict(warm_start_init_point=True),
                dict(replace_bounds=True), dict(dependency_detector="mumps"),
@@ -210,5 +203,11 @@ def test_only_the_listed_options_are_refused():
                dict(linear_solver="multifrontal"), dict(linear_solver="minres"),
                dict(inexact_algorithm=True), dict(line_search_method="penalty"),
                dict(line_search_method="cg-penalty"),
-               dict(line_search_method="none")):
+               dict(line_search_method="none"),
+               dict(linear_solver="dense-ldlt-blocked"), dict(linear_solver="custom"),
+               dict(linear_solver="condensed-cholesky"),
+               dict(derivative_test="first-order"),
+               dict(gradient_approximation="finite-difference-values"),
+               dict(jacobian_approximation="finite-difference-values"),
+               dict(factorization_dtype="float32"), dict(refinement_precision="double")):
         check_supported(ipopt_torch.Options(**kw))

@@ -33,6 +33,7 @@ import ipopt_torch
 from ipopt_torch import convert, kkt as port_kkt, modellib
 from ipopt_torch import sparse as port_sparse
 from test_torch_core import _random_iterate
+import torch_cases
 
 torch.set_num_threads(1)
 
@@ -250,20 +251,21 @@ def test_banded_solve_with_mc19_matches_reference():
     """Mittelmann's distributed control at N = 12 with the symmetric
     equilibration of every BCR level (linear_system_scaling="mc19"): the
     same status, iterations and factorizations as the reference (0, 16, 39),
-    the trace to rtol 1e-7 and the objective to 1e-9."""
+    the trace to rtol 1e-7 and the objective to 1e-9; the reference's solve
+    is the one recorded by tools/torch_reference_values.py
+    ("mitt12_mc19_trace")."""
     kw = dict(OPTS, resto_phase=False, linear_system_scaling="mc19")
-    rows_r, cb_r = _trace()
-    res_r = ipopt_tpu.solve(ref_models.mittelmann_dist_control(12), print_level=0,
-                            intermediate_callback=cb_r, **kw)
+    ref = torch_cases.recorded()["mitt12_mc19_trace"]
     rows_p, cb_p = _trace()
     res_p = ipopt_torch.solve(modellib.mittelmann_dist_control(12), device="cpu",
                               print_level=0, intermediate_callback=cb_p, **kw)
-    got = [(int(r.status), int(r.iter_count), int(r.counters.n_factorizations))
-           for r in (res_p, res_r)]
+    got = [(int(res_p.status), int(res_p.iter_count),
+            int(res_p.counters.n_factorizations)),
+           (ref["status"], ref["iter_count"], ref["n_factorizations"])]
     assert got[0] == got[1] == (0, 16, 39)
-    t_p, t_r = np.array(rows_p), np.array(rows_r)
+    t_p, t_r = np.array(rows_p), np.array(ref["trace"])
     np.testing.assert_allclose(t_p[:, 1:], t_r[:, 1:], rtol=1e-7, atol=1e-10)
-    np.testing.assert_allclose(float(res_p.obj), float(res_r.obj), rtol=1e-9)
+    np.testing.assert_allclose(float(res_p.obj), ref["obj"], rtol=1e-9)
 
 
 def _infeasible(pkg):
@@ -313,14 +315,15 @@ def test_banded_restoration_detects_infeasibility():
 
 
 def test_banded_options_and_batches():
-    """banded-bcr and multifrontal are admitted; dense-ldlt-blocked stays
-    refused; stacking banded problems is refused with a clear error; the
-    entry point defaults to the card."""
+    """banded-bcr and multifrontal are admitted; the sharded chained
+    factorization (chain_shard=True) stays refused; stacking banded problems
+    is refused with a clear error; the entry point defaults to the card."""
     from ipopt_torch.algorithm.solver import check_supported
     check_supported(ipopt_torch.Options(linear_solver="banded-bcr"))
     check_supported(ipopt_torch.Options(linear_solver="multifrontal"))
     with pytest.raises(ipopt_torch.UnsupportedOptionError):
-        check_supported(ipopt_torch.Options(linear_solver="dense-ldlt-blocked"))
+        check_supported(ipopt_torch.Options(linear_solver="banded-bcr",
+                                            chain_shard=True))
     with pytest.raises(ValueError, match="one problem at a time"):
         ipopt_torch.stack_problems([modellib.luksan_vlcek1_flat(8)] * 2,
                                    ipopt_torch.Options(linear_solver="banded-bcr"))

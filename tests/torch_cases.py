@@ -499,6 +499,186 @@ CASES["lv1_4096_cgpen"] = _c(("luksan_vlcek1", (4096, 32)), dict(
     BENCH, line_search_method="cg-penalty"), suite="chip")
 
 
+# -- slice H: mixed precision (tests/test_mixed_precision.py:23-60), the
+#    blocked dense LDL^T, the hooks and sensitivity (tests/test_sens.py,
+#    test_wired_options.py:307-345) -----------------------------------------
+def _lv1_dense(m, arr, n=100):
+    """tests/problems.py:146-169, the dense LuksanVlcek1 (KKT 2n - 2 wide)."""
+    def f(x):
+        return m.sum(100.0 * (x[:-1] ** 2 - x[1:]) ** 2 + (x[:-1] - 1.0) ** 2)
+
+    def g(x):
+        xk, xk1, xk2 = x[:-2], x[1:-1], x[2:]
+        return (3.0 * xk1 ** 3 + 2.0 * xk2 - 5.0
+                + m.sin(xk1 - xk2) * m.sin(xk1 + xk2)
+                + 4.0 * xk1 - xk * m.exp(xk - xk1) - 3.0)
+
+    x0 = np.full(n, -1.0)
+    x0[1::2] = 1.0
+    return dict(f=f, g=g, g_L=np.zeros(n - 2), g_U=np.zeros(n - 2), x0=x0)
+
+
+HS_SPECS["lv1_dense100"] = _lv1_dense
+# parametric problems of tests/test_sens.py
+SENS_OPTS = dict(nlp_scaling_method="none", bound_relax_factor=0.0)
+HS_SPECS["sens_pqp"] = lambda m, arr: dict(
+    f=lambda x, p: 0.5 * m.sum(x ** 2) - m.dot(p, x),
+    g=lambda x, p: arr([x[0] + x[1]]), g_L=np.array([1.0]),
+    g_U=np.array([1.0]), x0=np.zeros(2), params=np.array([1.0, 2.0]))
+HS_SPECS["sens_diagqp"] = lambda m, arr: dict(
+    f=lambda x: 0.5 * (x[0] ** 2 + 4.0 * x[1] ** 2), x0=np.array([1.0, 1.0]))
+HS_SPECS["sens_bqp"] = lambda m, arr: dict(
+    f=lambda x, p: 0.5 * m.sum(x ** 2) - m.dot(p, x),
+    x_L=np.array([-2.0, -2.0]), x_U=np.array([0.8, 2.0]), x0=np.zeros(2),
+    params=np.array([0.5, 0.5]))
+HS_SPECS["sens_bpqp"] = lambda m, arr: dict(
+    HS_SPECS["sens_pqp"](m, arr), x_L=np.array([-5.0, -5.0]),
+    x_U=np.array([0.1, 5.0]))
+F32FAC = dict(factorization_dtype="float32", tol=1e-7)
+F32IT = dict(dtype="float32", refinement_precision="double", tol=1e-7)
+for _name, (_prob, _opts) in {
+        "mp_hs071_f32fac": ("hs071_d0", F32FAC),
+        "mp_lv1_128_f32fac": (("luksan_vlcek1", (128, 4)),
+                              dict(F32FAC, resto_phase=False)),
+        "mp_lv1flat_256_f32fac": (("luksan_vlcek1_flat", (256,)), dict(
+            F32FAC, resto_phase=False, linear_solver="banded-bcr",
+            linear_system_scaling="mc19")),
+        "mp_lv1_128_f32it": (("luksan_vlcek1", (128, 4)),
+                             dict(F32IT, resto_phase=False)),
+        "mp_hs071_f32it": ("hs071_d0", F32IT),
+        "mp_nd3d_6_f32fac": (("mittelmann_dist_control_3d", (6,)),
+                             dict(F32FAC, **MF))}.items():
+    CASES[_name] = _c(_prob, _opts, suite="precision")
+CASES["blk_lv1d100"] = _c("lv1_dense100", dict(linear_solver="dense-ldlt-blocked"),
+                          suite="hooks")
+CASES["cc_hs071"] = _c("hs071_d0", dict(linear_solver="condensed-cholesky"),
+                       suite="hooks")
+# Finite differences at tol 1e-7: at 1e-8 the forward differences' noise
+# (1/h = 1e7 times the evaluations' rounding) decides the last iterations,
+# and the reference's jitted solves end elsewhere than its eager ones
+# (ROADMAP Queue 3)
+FD = "finite-difference-values"
+FD_TOL = dict(tol=1e-7)
+CASES["fd_grad_hs071"] = _c("hs071_d0", dict(FD_TOL, gradient_approximation=FD),
+                            suite="hooks")
+CASES["fd_jac_hs071"] = _c("hs071_d0", dict(FD_TOL, jacobian_approximation=FD),
+                           suite="hooks")
+CASES["fd_both_hs071"] = _c("hs071_d0", dict(FD_TOL, gradient_approximation=FD,
+                                             jacobian_approximation=FD), suite="hooks")
+# the reference's own FD gradient test (tests/test_wired_options.py:377-393):
+# the stationary point moves by -eps/2 on a separable quadratic
+HS_SPECS["fd_quad"] = lambda m, arr: dict(
+    f=lambda x: m.sum((x - 2.0) ** 2), x_L=-10.0, x_U=10.0, x0=np.zeros(3))
+CASES["fd_quad"] = _c("fd_quad", dict(tol=1e-8, gradient_approximation=FD,
+                                      findiff_perturbation=1e-2), suite="hooks")
+CASES["dt_hs071"] = _c("hs071_d0", dict(derivative_test="second-order"),
+                       suite="hooks")
+CASES["custom_hs071"] = _c("hs071_d0", dict(tol=1e-8), suite="hooks", custom="eigh")
+for _name, _prob, _opts in (
+        ("sens_pqp", "sens_pqp", SENS_OPTS), ("sens_diagqp", "sens_diagqp", SENS_OPTS),
+        ("sens_bqp", "sens_bqp", dict(SENS_OPTS, tol=1e-10)),
+        ("sens_bpqp", "sens_bpqp", dict(SENS_OPTS, tol=1e-10)),
+        ("sens_mitt1d", ("mittelmann_bndry_control_1d", (64, 4)), {})):
+    CASES[_name] = _c(_prob, _opts, suite="sens", record_iterate=True)
+# chip_smoke.py H1/H2/H5: the card's solves at a size the CPU reference runs
+for _i in (0, 255, 511):
+    CASES[f"fam{_i}_f32fac"] = _c(f"hs071_fam{_i}", F32FAC, suite="chip")
+    CASES[f"fam{_i}_f32it"] = _c(f"hs071_fam{_i}", F32IT, suite="chip")
+    CASES[f"fam{_i}_fd"] = _c(f"hs071_fam{_i}", dict(
+        FD_TOL, gradient_approximation=FD, jacobian_approximation=FD), suite="chip")
+CASES["lv1_256_f32fac"] = _c(("luksan_vlcek1", (256, 32)), F32FAC, suite="chip")
+CASES["lv1_256_f32it"] = _c(("luksan_vlcek1", (256, 32)), F32IT, suite="chip")
+CASES["lv1flat_2000_f32fac"] = _c(("luksan_vlcek1_flat", (2000,)), dict(
+    F32FAC, linear_solver="banded-bcr", linear_system_scaling="mc19"), suite="chip")
+
+# tests/test_torch_chained.py::test_lv1_solve_matches_reference and
+# test_torch_sparse.py::test_banded_solve_with_mc19_matches_reference: the
+# reference's solves with their per-iteration trace and final x
+for _n in (64, 60):
+    CASES[f"lv1_{_n}_trace"] = _c(("luksan_vlcek1", (_n, 4)), BENCH,
+                                  suite="trace", record_trace=True)
+CASES["mitt12_mc19_trace"] = _c(("mittelmann_dist_control", (12,)), dict(
+    BENCH, linear_solver="banded-bcr", resto_phase=False,
+    linear_system_scaling="mc19"), suite="trace", record_trace=True)
+
+# The sensitivity computations recorded at each case's final iterate:
+# (case, function of sens.py, argument, keywords).  dtheta moves alpha, the
+# 1-D control's penalty on its first boundary control.
+_DTHETA = np.zeros((15, 1))
+_DTHETA[0, 0] = 1e-3
+SENS = {
+    "step": ("sens_pqp", "sensitivity_step", np.array([0.1, -0.05]), {}),
+    "perturbed": ("sens_pqp", "perturbed_solution", np.array([1.2, 2.1]), {}),
+    "path": ("sens_pqp", "sensitivity_path",
+             [np.array([1.0, 2.0]) + k * np.array([0.1, -0.05]) for k in (1, 2, 3)],
+             {}),
+    "rhs": ("sens_pqp", "sensitivity_step_rhs", np.array([0.1]), {}),
+    "rhs_path": ("sens_pqp", "perturbed_solution_rhs", np.array([1.1]),
+                 dict(n_steps=2)),
+    "rhs_boundcheck": ("sens_bpqp", "perturbed_solution_rhs", np.array([1.3]),
+                       dict(boundcheck=True)),
+    "redhess": ("sens_diagqp", "reduced_hessian", np.array([0, 1]), {}),
+    "boundcheck": ("sens_bqp", "sensitivity_step_boundcheck", np.array([0.7, 0.0]),
+                   dict(bound_eps=1e-4)),
+    "chain_step": ("sens_mitt1d", "sensitivity_step", {"theta": _DTHETA}, {}),
+    "chain_redhess": ("sens_mitt1d", "reduced_hessian", np.array([0, 63]), {}),
+}
+
+
+def eigh_kkt(pkg: str):
+    """The custom KKT solver of tests/test_wired_options.py:307-345 for
+    ``pkg`` ("ref" or "port"): an eigendecomposition of the augmented
+    matrix with delta_c = 1e-8, its inertia from the eigenvalues' signs."""
+    if pkg == "ref":
+        import jax.numpy as jnp
+        from ipopt_tpu.algorithm.step import FactorResult
+        from ipopt_tpu.kkt import sigmas, assemble_aug_system, split_aug_solution
+
+        class EighKKT:
+            def factorize(self, nlp, opts, it, ev, W, mu, dwl):
+                z = jnp.zeros((), it.x.dtype)
+                dc = jnp.asarray(1e-8, it.x.dtype)
+                K = assemble_aug_system(W, ev.J_c, ev.J_d, sigmas(nlp, it), z, z, dc, dc)
+                w, V = jnp.linalg.eigh(K)
+                ok = ((jnp.sum(w > 0) == nlp.n + nlp.mi)
+                      & (jnp.sum(w < 0) == nlp.me + nlp.mi))
+                return FactorResult(fac=(w, V), K=K, delta_x=z, delta_c=dc,
+                                    delta_w_last=dwl, failed=~ok,
+                                    num_trials=jnp.ones((), jnp.int32))
+
+            def solve(self, nlp, opts, fac, K, parts):
+                w, V = fac
+                rhs = jnp.concatenate(parts).astype(w.dtype)
+                sol = V @ ((V.T @ rhs) / w)
+                return (split_aug_solution(sol, nlp.n, nlp.mi, nlp.me),
+                        jnp.zeros((), rhs.dtype))
+        return EighKKT()
+    import torch
+    from ipopt_torch.algorithm.step import FactorResult
+    from ipopt_torch.kkt import sigmas, assemble_aug_system, split_aug_solution
+
+    class EighKKT:
+        def factorize(self, nlp, opts, it, ev, W, mu, dwl):
+            z = torch.zeros_like(mu)
+            dc = torch.full_like(mu, 1e-8)
+            K = assemble_aug_system(W, ev.J_c, ev.J_d, sigmas(nlp, it), z, z, dc, dc)
+            w, V = torch.linalg.eigh(K)
+            ok = (((w > 0).sum(-1) == nlp.n + nlp.mi)
+                  & ((w < 0).sum(-1) == nlp.me + nlp.mi))
+            return FactorResult(fac=(w, V), K=K, delta_x=z, delta_c=dc,
+                                delta_w_last=dwl, failed=~ok,
+                                num_trials=torch.ones_like(mu, dtype=torch.int64))
+
+        def solve(self, nlp, opts, fac, K, parts):
+            w, V = fac
+            rhs = torch.cat(parts, -1).to(w.dtype)
+            coef = torch.matmul(V.transpose(-1, -2), rhs[..., None])[..., 0] / w
+            sol = torch.matmul(V, coef[..., None])[..., 0]
+            return (split_aug_solution(sol, nlp.n, nlp.mi, nlp.me),
+                    rhs.new_zeros(rhs.shape[0]))
+    return EighKKT()
+
+
 def suite_cases(suite: str):
     return sorted(k for k, v in CASES.items() if v["suite"] == suite)
 
@@ -540,6 +720,8 @@ def solve_port(name: str, iterates: dict):
 
     res = ipopt_torch.solve(build(case["problem"], "port"), device="cpu",
                             print_level=0, it0=it0, intermediate_callback=cb,
+                            custom_kkt_solver=(eigh_kkt("port") if case.get("custom")
+                                               else None),
                             **case["opts"])
     iterates[name] = res.iterate
     c = res.counters
