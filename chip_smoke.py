@@ -106,11 +106,28 @@ Phases, in order (any failure exits non-zero before the result line):
    1-D boundary control with K2); H5 the custom KKT solver, finite
    differences, the derivative checker, ``profiling.solve_timed`` and
    ``profiling.trace`` (K1's kernel events counted);
-13. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error,
+13. slice I: I1 ``luksan_vlcek1(4096, 32)`` with ``chain_shard=True`` over
+   8 shards on the card (lanes of one batched BCR): the reference's (0, 7,
+   21) and the unsharded solve's status and iterations, objective to 1e-9,
+   ms per iteration beside the unsharded solve, K2 launches per
+   factorization (interiors and reduced system), every K2 input held by
+   MittK2Check's rule (stacked by shape; a block whose input is not finite
+   by the finite pattern alone, and counted), K2 timed on the interior and
+   reduced levels; I2 the HS071 family with four device groups
+   (``solve_batched(devices=...)``) lane for lane equal to the one-device
+   solve; I3 ``stochastic_qp(8192, 30)`` in four scenario groups
+   (``canonicalize_scenario(devices=...)``): F1's status and iterations,
+   objective to 1e-9, K1 bit-equal on every input; I4 the hs071 .nl fixture
+   through the AMPL CLI with its .sol read back, and LuksanVlcek1 written
+   as .nl at n = 1e5, transcoded to binary, read (seconds printed) and
+   solved with banded-bcr at the Python-built model's values; I5 the C
+   library built by ``ipopt_torch.native.build`` and the reference's
+   ``hs071_c`` run against it on the card;
+14. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error,
    time, the plain version's and the library call's time and the least time
    the card could take, both kernels' launches per path, K2's numbers per
    path and its launch plans, K1's per multifrontal level;
-14. the last line: ``{"ok": true, "device": {...}}``.
+15. the last line: ``{"ok": true, "device": {...}}``.
 
 Each phase's start is printed with the seconds since the script started.
 It needs a CUDA device and the ``ipopt_torch`` package next to it;
@@ -1018,7 +1035,7 @@ def banded_path(dev, opts, card):
     if len(inputs) != LVF_K2_PER_FACTORIZATION * LVF_FACTORIZATIONS:
         raise SystemExit(f"banded path: captured {len(inputs)} K2 inputs")
     return k2_launches, inputs, dict(wall_s=wall, cold_s=cold_s, setup_s=setup_s,
-                                     peak_gib=peak_gib,
+                                     peak_gib=peak_gib, status=status, obj=obj,
                                      iterations=iters, factorizations=bcr)
 
 
@@ -1141,6 +1158,13 @@ class MittK2Check:
         d_p, inv_p = k2.block_ldlt_inv_plain(A)
         pattern_ok = (torch.equal(torch.isfinite(inv_k), torch.isfinite(inv_p))
                       and torch.equal(torch.isfinite(d_k), torch.isfinite(d_p)))
+        # a block whose input is not finite (what a rejected inertia trial
+        # leaves to the next BCR level) has no inverse to compare: it is held
+        # by the finite pattern above alone
+        fin_in = torch.isfinite(A).all(-1).all(-1)
+        n_nonfinite = int((~fin_in).sum())
+        if n_nonfinite:
+            A, d_k, inv_k, d_p, inv_p = (v[fin_in] for v in (A, d_k, inv_k, d_p, inv_p))
         fin = torch.isfinite(inv_p)
         scale = torch.where(fin, inv_p, 0.0).abs().amax((1, 2)).clamp(min=1.0)
         growth = torch.maximum(A.abs().amax((1, 2)),
@@ -1156,9 +1180,11 @@ class MittK2Check:
         r = self.rows.setdefault((b, nb), dict(
             inputs=0, blocks=0, forward=0, backward_only=0, failed=0,
             plain_orders_apart=0, inertia_differs=0, worst_backward_ratio=0.0,
-            worst_backward_error=0.0, plain_worst_backward_error=0.0, pattern_ok=True))
+            worst_backward_error=0.0, plain_worst_backward_error=0.0, pattern_ok=True,
+            nonfinite_input=0))
         r["inputs"] += inputs
-        r["blocks"] += A.shape[0]
+        r["blocks"] += A.shape[0] + n_nonfinite
+        r["nonfinite_input"] += n_nonfinite
         r["forward"] += int(fwd_ok.sum())
         if bool(out.any()):
             As = A[out]
@@ -1187,7 +1213,8 @@ class MittK2Check:
         bad = []
         for (b, nb), r in sorted(self.rows.items(), key=lambda kv: (-kv[0][0], -kv[0][1])):
             log(f"K2 on the {path} path, ({nb}, {b}, {b}): {r['inputs']} inputs, "
-                f"{r['blocks']} blocks: {r['forward']} within the forward rule; "
+                f"{r['blocks']} blocks ({r['nonfinite_input']} with a non-finite input, "
+                f"held by the finite pattern): {r['forward']} within the forward rule; "
                 f"{r['backward_only']} outside it but within the backward rule (in "
                 f"{r['plain_orders_apart']} of these the plain version's two orders are "
                 f"outside the forward rule too; worst backward error "
@@ -1953,7 +1980,8 @@ def arrow_path(dev, opts, card, S, ns, tag):
     k1 = check_k1_inputs(dev, inputs, (S, ar.bs, ar.bs), f"{tag} arrow", card)
     del inputs
     return dict(S=S, ns=ns, block=ar.bs, n=cnlp.n, status=got[0], iterations=got[1],
-                factorizations=got[2], setup_s=setup_s, wall_s=wall, cold_s=cold_s,
+                factorizations=got[2], obj=float(res.obj), setup_s=setup_s,
+                wall_s=wall, cold_s=cold_s,
                 peak_gib=peak,
                 ms_per_iteration=wall / max(got[1], 1) * 1e3, k1_launches=k1_n, k1=k1)
 
@@ -3058,6 +3086,305 @@ def slice_h_phases(dev, card, family, f64):
     return dict(h1=h1, h2=h2, h3=h3, h4=h4, h5=h5)
 
 
+# -- slice I: the chain axis over shards, batches and scenarios over devices,
+#    the AMPL reader and the C API ---------------------------------------
+# I1: the chained cell over CHAIN_SHARDS shards on the one card
+CHAIN_SHARDS = 8
+# I2, I3: device groups on the one card
+I_GROUPS = 4
+# I4: a read of the generated .nl above this many seconds cuts n to NL_CUT_N
+NL_READ_LIMIT_S, NL_CUT_N = 60.0, 10_000
+
+
+def bcr_k2_launches(nb):
+    """K2 launches of one BCR factorization of nb blocks: one per level
+    (the chain halves, an odd chain padded) and the root."""
+    n = 1
+    while nb > 1:
+        nb = (nb + 1) // 2
+        n += 1
+    return n
+
+
+def _k2_level_times(first, card, path):
+    """K2 on the first input of each shape in ``first`` (one BCR's levels):
+    CUDA events per wrapper call beside its bound, the plain version and
+    torch.linalg.inv_ex (pivoted, the inverse only: a yardstick)."""
+    import torch
+    from ipopt_torch.linalg import block_ldlt_inv as k2
+    rows = {}
+    for A in first:
+        nb, b = A.shape[0], A.shape[-1]
+        if f"{nb}x{b}" in rows:
+            continue
+        ms = time_cuda(lambda: k2.block_ldlt_inv(A), reps=20, warmup=2)
+        plain_ms = time_cuda(lambda: k2.block_ldlt_inv_plain(A), reps=2, warmup=1)
+        inv_ms = time_cuda(lambda: torch.linalg.inv_ex(A), reps=20, warmup=2)
+        bound_ms, bound_by, nbytes, ops = k2_bound(nb, b)
+        rows[f"{nb}x{b}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=inv_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by)
+        log(f"K2 on the {path} path, ({nb}, {b}, {b}) float64: {ms:.4f} ms per call "
+            f"(CUDA events), plain {plain_ms:.4f} ms, torch.linalg.inv_ex {inv_ms:.4f} "
+            f"ms, bound {bound_ms:.6f} ms ({bound_by}), {ms / bound_ms:.1f}x; card {card}")
+    return rows
+
+
+def i1_phase(dev, opts, card):
+    """I1: luksan_vlcek1(4096, 32) with chain_shard=True over CHAIN_SHARDS
+    shards on the card (lanes of one batched BCR): the reference's (0, 7,
+    21) and the unsharded solve's status and iterations, objective to 1e-9;
+    ms per iteration beside the unsharded solve; K2 launches per
+    factorization (the interiors' BCR and the reduced system's); every K2
+    input of one more sharded solve held by MittK2Check's rule, stacked by
+    shape; K2 timed on the first interior and reduced levels."""
+    import ipopt_torch
+    from ipopt_torch import modellib
+    from ipopt_torch.parallel.chain_shard import set_chain_mesh
+    from ipopt_torch.profile_main import capture_k2_inputs
+    cnlp = ipopt_torch.canonicalize_chained(modellib.luksan_vlcek1(LV1_N, LV1_V),
+                                            ipopt_torch.Options(**opts), device=dev)
+    nb = cnlp.chain.K + 1
+    k = nb // CHAIN_SHARDS
+    base, base_wall, _, _, base_k2, _ = _timed_solves(cnlp, dev, opts)
+    kw = dict(opts, chain_shard=True)
+    set_chain_mesh([dev] * CHAIN_SHARDS)
+    try:
+        res, wall, cold_s, k1_n, k2_n, peak = _timed_solves(cnlp, dev, kw)
+        inputs = capture_k2_inputs(lambda: ipopt_torch.solve(cnlp, device=dev, **kw))
+    finally:
+        set_chain_mesh(None)
+    got = (int(res.status), int(res.iter_count), int(res.counters.n_factorizations))
+    obj, base_obj = float(res.obj), float(base.obj)
+    per = bcr_k2_launches(k - 2) + bcr_k2_launches(2 * CHAIN_SHARDS)
+    ms_it, base_ms_it = (w / max(got[1], 1) * 1e3 for w in (wall, base_wall))
+    log(f"I1 chain_shard: solve(luksan_vlcek1({LV1_N}, {LV1_V})) over {CHAIN_SHARDS} "
+        f"shards of {k} blocks on {dev}: (status, iterations, factorizations) {got}, "
+        f"objective {obj!r} (unsharded {base_obj!r}, reference {LV1_OBJ!r}); warm "
+        f"{wall:.3f} s, {ms_it:.1f} ms/iteration against {base_ms_it:.1f} unsharded "
+        f"({base_wall:.3f} s), cold {cold_s:.3f} s, peak {peak:.3f} GiB; K2 launches "
+        f"{k2_n} ({k2_n / max(got[2], 1):g} per factorization: the interiors' "
+        f"{bcr_k2_launches(k - 2)} and the reduced system's "
+        f"{bcr_k2_launches(2 * CHAIN_SHARDS)}; unsharded {base_k2}), K1 {k1_n}; "
+        f"card {card}")
+    checks = [
+        (got == (LV1_STATUS, LV1_ITERS, LV1_FACTORIZATIONS), f"{got} != the reference's"),
+        ((int(base.status), int(base.iter_count)) == got[:2], "unsharded solve differs"),
+        (abs(obj - base_obj) <= 1e-9 * abs(base_obj), "objective off the unsharded"),
+        (abs(obj - LV1_OBJ) <= 1e-9 * abs(LV1_OBJ), "objective off the reference"),
+        (k2_n == per * got[2], f"K2 launches {k2_n} != {per} x {got[2]}"),
+        (len(inputs) == per * got[2], f"captured {len(inputs)} K2 inputs")]
+    for ok, msg in checks:
+        if not ok:
+            raise SystemExit(f"I1: {msg}")
+    # every input by MittK2Check's rule, stacked by shape (the blocks a
+    # rejected trial leaves non-finite by their finite pattern)
+    from ipopt_torch.linalg import block_ldlt_inv as k2
+    check = MittK2Check()
+    for A in inputs:
+        check(A, *k2.block_ldlt_inv(A))
+    rows = check.report("I1 chain_shard")
+    levels = _k2_level_times(inputs[:per], card, "I1 chain_shard")
+    del inputs
+    return dict(shards=CHAIN_SHARDS, blocks_per_shard=k, status=got[0],
+                iterations=got[1], factorizations=got[2], obj=obj, wall_s=wall,
+                ms_per_iteration=ms_it, unsharded_ms_per_iteration=base_ms_it,
+                peak_gib=peak, k2_launches=k2_n, k2_per_factorization=per,
+                k2_check=rows, k2_levels=levels)
+
+
+def i2_phase(dev, opts, card, nlp_b, one):
+    """I2: the HS071 family (B = 512) with ``devices=[dev] * I_GROUPS``: every
+    lane's status, iterations and x equal to the one-device solve ``one``;
+    K1 launches = the batched factorizations."""
+    import torch
+    import ipopt_torch
+    ipopt_torch.solve_batched(nlp_b, devices=[dev] * I_GROUPS, **opts)
+    _count_reset()
+    t0 = time.perf_counter()
+    res = ipopt_torch.solve_batched(nlp_b, devices=[dev] * I_GROUPS, **opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_n, k2_n = _counts()
+    dx = float((res.x - one.x).abs().max())
+    same = (torch.equal(res.status, one.status) and torch.equal(res.iter_count,
+                                                                 one.iter_count))
+    log(f"I2 solve_batched(devices=[{dev}] x {I_GROUPS}), B = {FAMILY_B}: status and "
+        f"iterations equal to the one-device solve in every lane: {same}; max |dx| "
+        f"{dx:.3e} (bit-equal {torch.equal(res.x, one.x)}); warm {wall:.3f} s "
+        f"({FAMILY_B / wall:.1f} NLPs/s); K1 launches {k1_n}, batched factorizations "
+        f"{res.batched_factorizations}, K2 {k2_n}; card {card}")
+    if not same or dx > 1e-12 or k2_n or k1_n != res.batched_factorizations or not k1_n:
+        raise SystemExit("I2: the device groups differ from the one-device solve")
+    return dict(groups=I_GROUPS, wall_s=wall, max_dx=dx, bit_equal=torch.equal(res.x, one.x),
+                k1_launches=k1_n, batched_factorizations=res.batched_factorizations)
+
+
+def i3_phase(dev, opts, card, f1):
+    """I3: stochastic_qp(8192, 30) with its scenarios in I_GROUPS device
+    groups: F1's status and iterations, objective to 1e-9 of F1's; K1 once
+    per group and once for the Schur root per factorization, bit-equal to
+    its plain version on every input."""
+    import ipopt_torch
+    from ipopt_torch import modellib
+    from ipopt_torch.profile_main import capture_k1_inputs
+    S, ns = SQP_F1
+    cnlp = ipopt_torch.canonicalize_scenario(modellib.stochastic_qp(S, ns),
+                                             ipopt_torch.Options(**opts), device=dev,
+                                             devices=[dev] * I_GROUPS)
+    res, wall, cold_s, k1_n, k2_n, peak = _timed_solves(cnlp, dev, opts)
+    got = (int(res.status), int(res.iter_count), int(res.counters.n_factorizations))
+    obj = float(res.obj)
+    rel = abs(obj - f1["obj"]) / abs(f1["obj"])
+    log(f"I3 scenario groups: stochastic_qp({S}, {ns}) in {I_GROUPS} groups of "
+        f"{S // I_GROUPS} on {dev}: (status, iterations, factorizations) {got}, "
+        f"objective {obj!r} (F1 {f1['obj']!r}, rel diff {rel:.2e}); warm {wall:.3f} s "
+        f"({wall / max(got[1], 1) * 1e3:.1f} ms/iteration, F1 "
+        f"{f1['ms_per_iteration']:.1f}); K1 launches {k1_n} "
+        f"({k1_n / max(got[2], 1):g} per factorization), K2 {k2_n}; card {card}")
+    if (got[:2] != (f1["status"], f1["iterations"]) or rel > 1e-9 or k2_n
+            or k1_n != (I_GROUPS + 1) * got[2]):
+        raise SystemExit("I3: the scenario groups differ from F1's solve")
+    inputs = capture_k1_inputs(lambda: ipopt_torch.solve(cnlp, device=dev, **opts))
+    bs = cnlp.chain.bs
+    k1 = check_k1_inputs(dev, inputs, (S // I_GROUPS, bs, bs), "I3 scenario groups",
+                         card)
+    del inputs
+    return dict(groups=I_GROUPS, status=got[0], iterations=got[1], factorizations=got[2],
+                obj=obj, rel_to_f1=rel, wall_s=wall, k1_launches=k1_n, k1=k1)
+
+
+def _fixture(name):
+    """A string constant of tests/test_ampl.py, read with ast (the module
+    itself imports the JAX package)."""
+    import ast
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "tests", "test_ampl.py")) as fh:
+        tree = ast.parse(fh.read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == name for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise SystemExit(f"I4: no {name} in tests/test_ampl.py")
+
+
+def i4_phase(dev, opts, card, banded):
+    """I4: the hs071 .nl fixture through the CLI (``ampl.main``) on the card,
+    its .sol read back; LuksanVlcek1 written as ASCII .nl at n = LVF_N by
+    ``ampl.write_luksan_vlcek1_nl``, transcoded to binary, read (seconds
+    printed; above NL_READ_LIMIT_S the phase runs at NL_CUT_N) and solved
+    with banded-bcr: the Python-built model's status and iterations,
+    objective to 1e-9."""
+    import torch
+    import ipopt_torch
+    from ipopt_torch import modellib
+    from ipopt_torch.interfaces import ampl
+    from ipopt_torch.sparse import canonicalize_sparse
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "ipopt_torch", "_build", "nl")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "hs071.nl")
+    with open(path, "w") as fh:
+        fh.write(_fixture("HS071_NL"))
+    _count_reset()
+    # the CLI's default device is the card
+    rc = ampl.main([path, "-AMPL", "print_level=0"]
+                   + ([] if dev.type == "cuda" else [f"device={dev.type}"]))
+    k1_cli, _ = _counts()
+    model = ampl.read_nl_model(path)
+    x, y, status, suf = ampl.read_sol(path[:-3] + ".sol")
+    f_sol = float(model.nlp.f(torch.as_tensor(x, dtype=torch.float64)))
+    log(f"I4 AMPL CLI on hs071.nl ({dev}): rc {rc}, .sol status {status}, f(x_sol) "
+        f"{f_sol!r} (|df| {abs(f_sol - F_STAR):.2e}), suffixes {sorted(suf)}; K1 "
+        f"launches {k1_cli}")
+    if rc != 0 or status != 0 or abs(f_sol - F_STAR) > 1e-7 or not k1_cli:
+        raise SystemExit("I4: the CLI's hs071 solve failed")
+
+    n = LVF_N
+    out = dict(cli_k1_launches=k1_cli, cli_f=f_sol)
+    while True:
+        src = os.path.join(work, f"lv1_{n}.nl")
+        t0 = time.perf_counter()
+        ampl.write_luksan_vlcek1_nl(src, n)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ampl.ascii_nl_to_binary(src, src + ".bin")
+        bin_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m = ampl.read_nl_model(src + ".bin")
+        read_s = time.perf_counter() - t0
+        log(f"I4 LuksanVlcek1 .nl at n = {n}: written in {write_s:.2f} s (ASCII, "
+            f"{os.path.getsize(src)} B), transcoded in {bin_s:.2f} s "
+            f"({os.path.getsize(src + '.bin')} B), read (binary, tape compiled) in "
+            f"{read_s:.2f} s: {m.f_tape.n_groups} + {m.g_tape.n_groups} tape groups")
+        if read_s <= NL_READ_LIMIT_S or n == NL_CUT_N:
+            break
+        log(f"I4: reading took over {NL_READ_LIMIT_S:g} s: cut to n = {NL_CUT_N}")
+        n = NL_CUT_N
+    kw = dict(opts, **BANDED)
+    t0 = time.perf_counter()
+    cnlp = canonicalize_sparse(m.nlp, ipopt_torch.Options(**kw), device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    res, wall, cold_s, k1_n, k2_n, _ = _timed_solves(cnlp, dev, kw)
+    got = (int(res.status), int(res.iter_count), int(res.counters.n_factorizations))
+    if n == LVF_N:
+        want = (banded["status"], banded["iterations"], banded["factorizations"])
+        want_obj = banded["obj"]
+    else:
+        py = ipopt_torch.solve(modellib.luksan_vlcek1_flat(n), device=dev, **kw)
+        want = (int(py.status), int(py.iter_count), int(py.counters.n_factorizations))
+        want_obj = float(py.obj)
+    obj = float(res.obj)
+    log(f"I4 .nl LuksanVlcek1 n = {n}, banded-bcr: (status, iterations, "
+        f"factorizations) {got}, objective {obj!r}; Python-built {want}, "
+        f"{want_obj!r} (|d| {abs(obj - want_obj):.2e}); set-up {setup_s:.3f} s, warm "
+        f"{wall:.3f} s, cold {cold_s:.3f} s; K2 launches {k2_n}, K1 {k1_n}; card {card}")
+    if got[:2] != want[:2] or abs(obj - want_obj) > 1e-9 * abs(want_obj) or k1_n \
+            or not k2_n:
+        raise SystemExit("I4: the .nl model's banded solve differs from the "
+                         "Python-built one")
+    out.update(n=n, write_s=write_s, transcode_s=bin_s, read_s=read_s, setup_s=setup_s,
+               status=got[0], iterations=got[1], factorizations=got[2], obj=obj,
+               wall_s=wall, k2_launches=k2_n)
+    return out
+
+
+def i5_phase(dev, card):
+    """I5: the port's C library built by ``ipopt_torch.native.build`` (gcc,
+    sysconfig's paths), the reference's unchanged ``native/examples/
+    hs071_c.c`` linked against it, run with IPOPT_TORCH_C_DEVICE=cuda."""
+    from ipopt_torch.native import build as native_build
+    t0 = time.perf_counter()
+    out = native_build.build()
+    build_s = time.perf_counter() - t0
+    env = dict(os.environ, IPOPT_TORCH_C_DEVICE=dev.type)
+    t0 = time.perf_counter()
+    proc = subprocess.run([out["hs071_c"]], env=env, capture_output=True, text=True,
+                          timeout=600)
+    run_s = time.perf_counter() - t0
+    log(f"I5 C library: built in {build_s:.1f} s ({os.path.basename(out['lib'])}, "
+        f"hs071_c); hs071_c with IPOPT_TORCH_C_DEVICE={dev.type}: rc {proc.returncode} "
+        f"in {run_s:.1f} s: {proc.stdout.strip()[-300:]!r}")
+    if proc.returncode != 0 or "EXIT: Optimal Solution Found." not in proc.stdout:
+        raise SystemExit(f"I5: hs071_c failed: {proc.stderr[-2000:]}")
+    return dict(build_s=build_s, run_s=run_s)
+
+
+def slice_i_phases(dev, opts, card, nlp_b, one, f1, banded):
+    """I1-I5; returns their numbers for the kernels line."""
+    phase("I1 the chain axis over shards")
+    i1 = i1_phase(dev, opts, card)
+    phase("I2 the HS071 family over device groups")
+    i2 = i2_phase(dev, opts, card, nlp_b, one)
+    phase("I3 the scenario groups")
+    i3 = i3_phase(dev, opts, card, f1)
+    phase("I4 AMPL")
+    i4 = i4_phase(dev, opts, card, banded)
+    phase("I5 the C library")
+    i5 = i5_phase(dev, card)
+    return dict(i1=i1, i2=i2, i3=i3, i4=i4, i5=i5)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3249,6 +3576,14 @@ def main():
                  h1_banded_lv1_flat_1e5_float32=h["h1"]["banded"]["launches"],
                  h2_chained_lv1_4096_32_float32_iterate=h["h2"]["chained"]["k2_launches"],
                  h4_sensitivity_mittelmann_1d_2048=h["h4"]["chained"]["k2_launches"])
+    # I1-I5: the chain axis over shards, device groups, AMPL, the C library
+    i = slice_i_phases(dev, opts, card, nlp_b, res, f["f1"], banded)
+    f["k1_launches_per_path"].update(
+        i2_hs071_512_4_device_groups=i["i2"]["k1_launches"],
+        i3_arrow_sqp_8192_30_4_device_groups=i["i3"]["k1_launches"],
+        i4_ampl_cli_hs071=i["i4"]["cli_k1_launches"])
+    paths.update(i1_chain_shard_lv1_4096_32_8_shards=i["i1"]["k2_launches"],
+                 i4_ampl_lv1_flat_nl=i["i4"]["k2_launches"])
 
     # 10. kernels line, 11. result line
     phase("kernels line")
@@ -3263,7 +3598,8 @@ def main():
         slice_g=dict(cg_penalty_chained=g["g4"]["cg_penalty_chained"]),
         slice_h=dict(h1_chained_float32=h["h1"]["chained"],
                      h1_banded_float32=h["h1"]["banded"], h2_chained=h["h2"]["chained"],
-                     h4_sensitivity_chained=h["h4"]["chained"]))
+                     h4_sensitivity_chained=h["h4"]["chained"]),
+        slice_i=dict(i1_chain_shard=i["i1"], i4_ampl=i["i4"]))
     k1_entry = dict(k1_stats)
     k1_entry["library_ms"] = k1_entry.pop("ldl_factor_ms")
     k1_entry["launches_per_path"] = {"hs071_512": launches, **{
@@ -3278,6 +3614,8 @@ def main():
                                h4_sensitivity=dict(k1=h["h4"]["k1"],
                                                    sens_ms=h["h4"]["sens_ms"]),
                                h5=h["h5"])
+    k1_entry["slice_i"] = dict(i2_device_groups=i["i2"], i3_scenario_groups=i["i3"],
+                               i5_c_library=i["i5"])
     print(json.dumps({"kernels": [{
         "name": "block_ldlt", "route": "cuda",
         "source": "ipopt_torch/csrc/block_ldlt.cu",

@@ -11,6 +11,14 @@ one call (K1 on the card, the reference's own call site of its Pallas
 kernel), the Schur root through ``linalg/ldlt.ldlt`` (K1 with one block per
 lane).  Inertia (Sylvester) = the scenario blocks' pivot signs + the root's.
 
+The S scenarios are cut into one contiguous group per device of
+``ArrowInfo.devices`` (``canonicalize_scenario(..., devices=)``; by default
+one group on the shared block's device): each group's blocks are factored
+(K1) and back-solved on its device, the groups' Schur terms and
+right-hand-side reductions are copied to the shared block's device and
+summed there (the reference's ``psum``, ``arrow_kkt.py:113-115, 140``), and
+the inertia is the sum of the groups' counts and the root's.
+
 Scenario block unknowns, bs = ns + 2 ms wide: [x_s (ns) | s_s (ms) | y_s
 (ms)].  Equality rows have no slack: their s slot is a dummy (+1 diagonal,
 no -I coupling, zero rhs), so the expected inertia is pos = n + mi + me,
@@ -23,13 +31,13 @@ from typing import Any, NamedTuple
 import torch
 
 from ..problem import CanonicalNLP
-from ..types import Iterate, tree_where
+from ..types import Iterate, contiguous_ranges
 from ..options import Options
 from ..kkt import sigmas
 from ..linalg.ldlt import ldlt, ldlt_solve, LDLTResult
 from ..linalg.block_tridiag import batched_block_ldlt_inv
 from ..parallel.scenario import ArrowInfo, scatter_rows
-from .step import refine, perturbation_start
+from .step import refine, regularized_retry
 
 
 def _mv(M, x):
@@ -49,14 +57,18 @@ class ArrowMatrix(NamedTuple):
 
 
 class ArrowFactor(NamedTuple):
-    Ainv: Any        # (B, S, bs, bs) explicit scenario-block inverses
-    ds: Any          # (B, S, bs) pivots (inertia)
-    Yc: Any          # (B, S, bs, n0) = K_s^{-1} C_s
+    """Ainv, ds and Yc hold one tensor per scenario group (``groups``:
+    ((lo, hi, device), ...)), each (B, hi - lo, ...) on its device."""
+
+    Ainv: Any        # (B, S_g, bs, bs) explicit scenario-block inverses
+    ds: Any          # (B, S_g, bs) pivots (inertia)
+    Yc: Any          # (B, S_g, bs, n0) = K_s^{-1} C_s
     root: LDLTResult  # LDL^T of the Schur complement (B, n0, n0)
     num_pos: Any
     num_neg: Any
     num_zero: Any
     singular: Any
+    groups: tuple
 
 
 def assemble_arrow(nlp: CanonicalNLP, it: Iterate, Jblocks, Wblocks,
@@ -96,28 +108,60 @@ def assemble_arrow(nlp: CanonicalNLP, it: Iterate, Jblocks, Wblocks,
     return ArrowMatrix(Ks=Ks, Cs=Cs, K0=K0)
 
 
-def arrow_factorize(K: ArrowMatrix, pivot_tol: float = 0.0) -> ArrowFactor:
-    """Scenario-block inverses, the Schur complement and its LDL^T, with the
-    inertia of the whole arrow matrix (``arrow_kkt.py:99-125``)."""
-    B, S, bs, _ = K.Ks.shape
-    ds, Ainv = batched_block_ldlt_inv(K.Ks.reshape(B * S, bs, bs))
-    ds, Ainv = ds.reshape(B, S, bs), Ainv.reshape(B, S, bs, bs)
-    # per-block inertia, the zero threshold scaled by the block's largest
-    # pivot (NaN pivots count nowhere, as in the reference)
+def _block_counts(ds, pivot_tol):
+    """Per-lane inertia of the scenario blocks' pivots ds (B, S, bs), the
+    zero threshold scaled by each block's largest pivot (NaN pivots count
+    nowhere, as in the reference)."""
     scale = torch.clamp(ds.abs().amax(-1, keepdim=True), min=1.0)
     base = pivot_tol if pivot_tol > 0 else torch.finfo(ds.dtype).eps
     is_zero = ds.abs() <= base * scale
-    blk_pos = (~is_zero & (ds > 0)).sum((-1, -2))
-    blk_neg = (~is_zero & (ds < 0)).sum((-1, -2))
-    blk_zer = is_zero.sum((-1, -2))
-    Yc = torch.matmul(Ainv, K.Cs)
-    Schur = K.K0 - torch.einsum("bsji,bsjk->bik", K.Cs, Yc)
-    root = ldlt(Schur, pivot_tol)
-    num_zero = blk_zer + root.num_zero
+    return ((~is_zero & (ds > 0)).sum((-1, -2)), (~is_zero & (ds < 0)).sum((-1, -2)),
+            is_zero.sum((-1, -2)))
+
+
+def _scenario_blocks(Ks, Cs, pivot_tol):
+    """(ds, Ainv, Yc, counts, C^T K^-1 C) of scenario blocks Ks (B, S, bs, bs)
+    coupled by Cs (B, S, bs, n0): one ``batched_block_ldlt_inv`` call."""
+    B, S, bs, _ = Ks.shape
+    ds, Ainv = batched_block_ldlt_inv(Ks.reshape(B * S, bs, bs))
+    ds, Ainv = ds.reshape(B, S, bs), Ainv.reshape(B, S, bs, bs)
+    Yc = torch.matmul(Ainv, Cs)
+    return ds, Ainv, Yc, _block_counts(ds, pivot_tol), torch.einsum(
+        "bsji,bsjk->bik", Cs, Yc)
+
+
+def scenario_groups(S: int, devices):
+    """((lo, hi, device), ...): S scenarios cut into one contiguous group per
+    device (empty groups dropped)."""
+    return tuple((lo, hi, torch.device(d))
+                 for (lo, hi), d in zip(contiguous_ranges(S, len(devices)), devices)
+                 if hi > lo)
+
+
+def arrow_factorize(K: ArrowMatrix, pivot_tol: float = 0.0,
+                    devices=()) -> ArrowFactor:
+    """Scenario-block inverses, the Schur complement and its LDL^T, with the
+    inertia of the whole arrow matrix (``arrow_kkt.py:99-125``), the
+    scenarios in one group per entry of ``devices`` (default: one group on
+    K's device; module docstring)."""
+    dev0 = K.K0.device
+    groups = scenario_groups(K.Ks.shape[1], devices or (dev0,))
+    out, counts, schur = [], [], []
+    for lo, hi, d in groups:
+        ds, Ainv, Yc, c, CYC = _scenario_blocks(K.Ks[:, lo:hi].to(d),
+                                                K.Cs[:, lo:hi].to(d), pivot_tol)
+        out.append((Ainv, ds, Yc))
+        counts.append([v.to(dev0) for v in c])
+        schur.append(CYC.to(dev0))
+    # the gather and sum of the groups' Schur terms on the shared block's
+    # device
+    root = ldlt(K.K0 - sum(schur), pivot_tol)
+    pos, neg, zer = (sum(c[i] for c in counts) for i in range(3))
+    num_zero = zer + root.num_zero
+    Ainv, ds, Yc = (tuple(o[i] for o in out) for i in range(3))
     return ArrowFactor(Ainv=Ainv, ds=ds, Yc=Yc, root=root,
-                       num_pos=blk_pos + root.num_pos,
-                       num_neg=blk_neg + root.num_neg,
-                       num_zero=num_zero, singular=num_zero > 0)
+                       num_pos=pos + root.num_pos, num_neg=neg + root.num_neg,
+                       num_zero=num_zero, singular=num_zero > 0, groups=groups)
 
 
 def arrow_solve(fac: ArrowFactor, r0, rs):
@@ -128,9 +172,12 @@ def arrow_solve(fac: ArrowFactor, r0, rs):
     sides over the one factorization."""
     vec = rs.dim() == 3
     R0, Rs = (r0[..., None], rs[..., None]) if vec else (r0, rs)
-    rhs0 = R0 - torch.einsum("bsji,bsjk->bik", fac.Yc, Rs)
+    Rg = [Rs[:, lo:hi].to(d) for lo, hi, d in fac.groups]
+    rhs0 = R0 - sum(torch.einsum("bsji,bsjk->bik", Yc, R).to(R0.device)
+                    for Yc, R in zip(fac.Yc, Rg))
     w0 = ldlt_solve(fac.root, rhs0)
-    ws = fac.Ainv @ Rs - fac.Yc @ w0[:, None]
+    ws = torch.cat([(Ainv @ R - Yc @ w0.to(R.device)[:, None]).to(R0.device)
+                    for Ainv, Yc, R in zip(fac.Ainv, fac.Yc, Rg)], 1)
     return (w0[..., 0], ws[..., 0]) if vec else (w0, ws)
 
 
@@ -191,34 +238,13 @@ def arrow_factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate,
 
     def factor(delta_x, delta_c):
         Ka = assemble_arrow(nlp, it, Jblocks, Wblocks, delta_x, delta_c)
-        fac = arrow_factorize(Ka, pivot_tol=opts.ldlt_pivot_tol)
+        fac = arrow_factorize(Ka, pivot_tol=opts.ldlt_pivot_tol,
+                              devices=nlp.chain.devices)
         ok = (fac.num_pos == exp_pos) & (fac.num_neg == exp_neg) & ~fac.singular
         return Ka, fac, ok
 
-    dxv = torch.zeros_like(mu)
-    dcv = delta_cd
-    Ka, fac, ok = factor(dxv, dcv)
-    trials = torch.ones(mu.shape, dtype=torch.int64, device=mu.device)
-    gave_up = torch.zeros(mu.shape, dtype=torch.bool, device=mu.device)
-    while True:
-        active = ~(ok | gave_up) & (trials < opts.max_inertia_correction_rounds)
-        if not bool(active.any()):
-            break
-        was_singular = fac.singular
-        only_dc = was_singular & (dcv <= delta_cd)
-        new_dc = torch.where(was_singular,
-                             torch.clamp(torch.maximum(dcv * 100.0, delta_cd),
-                                         max=1e-4), dcv)
-        start_val, inc_fact = perturbation_start(opts, delta_w_last)
-        bumped = torch.where(dxv == 0, start_val, dxv * inc_fact)
-        new_dx = torch.where(only_dc, dxv, bumped)
-        new_gave_up = new_dx > opts.max_hessian_perturbation
-        Ka2, fac2, ok2 = factor(new_dx, new_dc)
-        trials, dxv, dcv, Ka, fac, ok, gave_up = tree_where(
-            active,
-            (trials + 1, new_dx, new_dc, Ka2, fac2, ok2, new_gave_up),
-            (trials, dxv, dcv, Ka, fac, ok, gave_up))
-
+    Ka, fac, dxv, dcv, trials, ok, _ = regularized_retry(opts, factor, delta_cd,
+                                                         delta_w_last)
     new_last = torch.where(dxv > 0, dxv, delta_w_last)
     return ArrowFactorResult(fac=fac, K=Ka, delta_x=dxv, delta_c=dcv,
                              delta_w_last=new_last, failed=~ok,

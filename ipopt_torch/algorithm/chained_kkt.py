@@ -22,16 +22,17 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from ..problem import CanonicalNLP
-from ..types import Iterate, tree_where
+from ..types import Iterate
 from ..options import Options
 from ..kkt import sigmas
 from ..linalg.block_tridiag import (BTDMatrix, BCRFactor, bcr_factorize, bcr_solve,
                                     btd_cast)
 from ..chained import scatter_rows
-from .step import refine, refine_dtypes, perturbation_start
+from .step import refine, refine_dtypes, regularized_retry
 
 
 def _eye(k, like):
@@ -105,6 +106,19 @@ def expected_inertia(nlp: CanonicalNLP):
     return s.n + s.mi + s.me + 2 * nlp.chain.mk, s.me + s.mi
 
 
+def chain_diag_kind(nlp: CanonicalNLP) -> torch.Tensor:
+    """(K+1, bs) int8 diagonal kinds, for re-adding the deltas without
+    re-assembly (``chained_kkt.py:139-150``): 0 = x/s slot (+delta_x), 1 = y
+    slot (-delta_c), 2 = dummy (+1, fixed)."""
+    ch = nlp.chain
+    K, v, mk = ch.K, ch.v, ch.mk
+    kind = np.full((K + 1, ch.bs), 2, np.int8)
+    kind[:, :v] = 0
+    kind[:K, v:v + mk] = np.where(np.asarray(ch.eq_mask), 2, 0)
+    kind[:K, v + mk:] = 1
+    return torch.as_tensor(kind)
+
+
 class ChainFactorResult(NamedTuple):
     fac: BCRFactor
     K: BTDMatrix             # the assembled matrices, for refinement
@@ -131,49 +145,47 @@ def chained_factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate,
                * mu ** opts.jacobian_regularization_exponent)
     delta_cd = torch.clamp(base_cd, min=opts.jacobian_regularization_value)
 
-    def factor(delta_x, delta_c):
-        Kbtd = assemble_btd(nlp, it, AB, Wblocks, delta_x, delta_c)
-        fac = bcr_factorize(btd_cast(Kbtd, opts.factorization_dtype),
-                            pivot_tol=opts.ldlt_pivot_tol,
-                            equilibrate=opts.linear_system_scaling == "mc19")
-        ok = (fac.num_pos == exp_pos) & (fac.num_neg == exp_neg) & ~fac.singular
-        return Kbtd, fac, ok
+    if opts.chain_shard:
+        # the chain axis over the registered shards (parallel/chain_shard.py):
+        # assemble once with zero deltas; the retry loop re-adds them on the
+        # shards' diagonals
+        from ..parallel.chain_shard import dist_factorize_retry, with_deltas
+        zero = torch.zeros_like(mu)
+        K0 = assemble_btd(nlp, it, AB, Wblocks, zero, zero)
+        kind = chain_diag_kind(nlp).to(K0.diag.device)
+        fac, dxv, dcv, trials, ok, _ = dist_factorize_retry(
+            btd_cast(K0, opts.factorization_dtype), kind, opts, delta_cd,
+            delta_w_last, exp_pos, exp_neg)
+        dxv, dcv = dxv.to(mu.dtype), dcv.to(mu.dtype)
+        # K with the final deltas, for the refinement's products
+        Kb = with_deltas(K0, kind, dxv, dcv)
+    else:
+        def factor(delta_x, delta_c):
+            Kbtd = assemble_btd(nlp, it, AB, Wblocks, delta_x, delta_c)
+            fac = bcr_factorize(btd_cast(Kbtd, opts.factorization_dtype),
+                                pivot_tol=opts.ldlt_pivot_tol,
+                                equilibrate=opts.linear_system_scaling == "mc19")
+            ok = (fac.num_pos == exp_pos) & (fac.num_neg == exp_neg) & ~fac.singular
+            return Kbtd, fac, ok
 
-    dxv = torch.zeros_like(mu)
-    dcv = delta_cd
-    Kb, fac, ok = factor(dxv, dcv)
-    trials = torch.ones(mu.shape, dtype=torch.int64, device=mu.device)
-    gave_up = torch.zeros(mu.shape, dtype=torch.bool, device=mu.device)
-    while True:
-        active = ~(ok | gave_up) & (trials < opts.max_inertia_correction_rounds)
-        if not bool(active.any()):
-            break
-        was_singular = fac.singular
-        only_dc = was_singular & (dcv <= delta_cd)
-        new_dc = torch.where(was_singular,
-                             torch.clamp(torch.maximum(dcv * 100.0, delta_cd),
-                                         max=1e-4), dcv)
-        start_val, inc_fact = perturbation_start(opts, delta_w_last)
-        bumped = torch.where(dxv == 0, start_val, dxv * inc_fact)
-        new_dx = torch.where(only_dc, dxv, bumped)
-        new_gave_up = new_dx > opts.max_hessian_perturbation
-        Kb2, fac2, ok2 = factor(new_dx, new_dc)
-        trials, dxv, dcv, Kb, fac, ok, gave_up = tree_where(
-            active,
-            (trials + 1, new_dx, new_dc, Kb2, fac2, ok2, new_gave_up),
-            (trials, dxv, dcv, Kb, fac, ok, gave_up))
-
-    new_last = torch.where(dxv > 0, dxv, delta_w_last)
+        Kb, fac, dxv, dcv, trials, ok, _ = regularized_retry(opts, factor, delta_cd,
+                                                             delta_w_last)
     return ChainFactorResult(fac=fac, K=Kb, delta_x=dxv, delta_c=dcv,
-                             delta_w_last=new_last, failed=~ok,
-                             num_trials=trials)
+                             delta_w_last=torch.where(dxv > 0, dxv, delta_w_last),
+                             failed=~ok, num_trials=trials)
 
 
-def chained_solve_refined(Kbtd: BTDMatrix, fac: BCRFactor, rhs, opts: Options):
+def chained_solve_refined(Kbtd: BTDMatrix, fac, rhs, opts: Options):
     """BCR solve + iterative refinement against the assembled BTD matrices,
     in float64 under ``refinement_precision="double"`` whatever the factor's
     dtype (``chained_kkt.py:262-333``); returns (sol, residual ratio) per
-    lane."""
-    dts = refine_dtypes(opts, Kbtd.diag.dtype, fac.Ainv_root.dtype)
+    lane.  ``fac`` is a ``BCRFactor`` or, under ``chain_shard``, a
+    ``ChainShardFactor`` (solved by ``dist_solve``)."""
+    from ..parallel.chain_shard import ChainShardFactor, dist_solve
+    if isinstance(fac, ChainShardFactor):
+        solve_fn, fac_dt = dist_solve, fac.reduced.Ainv_root.dtype
+    else:
+        solve_fn, fac_dt = bcr_solve, fac.Ainv_root.dtype
+    dts = refine_dtypes(opts, Kbtd.diag.dtype, fac_dt)
     K_a = BTDMatrix(diag=Kbtd.diag.to(dts[1]), sub=Kbtd.sub.to(dts[1]))
-    return refine(K_a.matvec, lambda r: bcr_solve(fac, r), rhs, opts, dtypes=dts)
+    return refine(K_a.matvec, lambda r: solve_fn(fac, r), rhs, opts, dtypes=dts)

@@ -18,13 +18,13 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ..types import Iterate, tree_where
+from ..types import Iterate
 from ..problem import CanonicalNLP
 from ..options import Options
 from .quasi_newton import LowRankW
 from .lowrank_kkt import (lowrank_correction, refine_parts, smw_apply,
                           smw_inertia)
-from .step import perturbation_start
+from .step import regularized_retry
 
 
 class StructLowRankKKT(NamedTuple):
@@ -146,7 +146,8 @@ def _base_factor(nlp: CanonicalNLP, opts: Options, it: Iterate, sigma):
             return assemble_arrow(nlp, it, Jb, W, dxv, dcv)
 
         def factorize(K):
-            return arrow_factorize(K, pivot_tol=opts.ldlt_pivot_tol)
+            return arrow_factorize(K, pivot_tol=opts.ldlt_pivot_tol,
+                                   devices=nlp.chain.devices)
     elif be == "banded":
         from ..sparse import assemble_banded, jacobian_values, expected_inertia_banded
         info = nlp.chain
@@ -208,29 +209,8 @@ def lowrank_struct_factorize(nlp: CanonicalNLP, opts: Options, it: Iterate,
                                Zx=Zx, Zs=Zs, Zyc=Zyc, Zyd=Zyd)
         return K, fac, base_ok & smw_ok
 
-    dxv = torch.zeros_like(mu)
-    dcv = delta_cd
-    K, fac, ok = full_factor(dxv, dcv)
-    trials = torch.ones(mu.shape, dtype=torch.int64, device=mu.device)
-    gave_up = torch.zeros(mu.shape, dtype=torch.bool, device=mu.device)
-    while True:
-        active = ~(ok | gave_up) & (trials < opts.max_inertia_correction_rounds)
-        if not bool(active.any()):
-            break
-        was_singular = fac.smw_singular
-        only_dc = was_singular & (dcv <= delta_cd)
-        new_dc = torch.where(was_singular,
-                             torch.clamp(torch.maximum(dcv * 100.0, delta_cd),
-                                         max=1e-4), dcv)
-        start_val, inc_fact = perturbation_start(opts, delta_w_last)
-        bumped = torch.where(dxv == 0, start_val, dxv * inc_fact)
-        new_dx = torch.where(only_dc, dxv, bumped)
-        new_gave_up = new_dx > opts.max_hessian_perturbation
-        K2, fac2, ok2 = full_factor(new_dx, new_dc)
-        trials, dxv, dcv, K, fac, ok, gave_up = tree_where(
-            active, (trials + 1, new_dx, new_dc, K2, fac2, ok2, new_gave_up),
-            (trials, dxv, dcv, K, fac, ok, gave_up))
-
+    K, fac, dxv, dcv, trials, ok, _ = regularized_retry(
+        opts, full_factor, delta_cd, delta_w_last, singular=lambda f: f.smw_singular)
     new_last = torch.where(dxv > 0, dxv, delta_w_last)
     return StructLowRankResult(fac=fac, K=K, delta_x=dxv, delta_c=dcv,
                                delta_w_last=new_last, failed=~ok, num_trials=trials)

@@ -19,8 +19,8 @@ B = 1), and a lane that has finished is not stepped again.  Both barrier
 strategies (monotone, and adaptive with its oracles, Mehrotra's mode and the
 correctors), warm starts, the time limits and the mixed-precision modes
 (``factorization_dtype``, ``refinement_precision="double"`` over a float32
-iterate) are ported; ``chain_shard=True``, the one option value the port
-lacks, raises ``UnsupportedOptionError`` before any iteration.
+iterate) and the chain axis sharded over devices (``chain_shard=True``,
+``parallel/chain_shard.py``) are ported: the port refuses no option value.
 """
 from __future__ import annotations
 
@@ -68,11 +68,8 @@ class UnsupportedOptionError(ValueError):
 
 
 # (option, supported values) of the features this port has: every value of
-# the reference's Options but ``chain_shard=True`` (the sharded chained
-# factorization over several devices, parallel/chain_shard.py).
-_SUPPORTED = (
-    ("chain_shard", (False,)),
-)
+# the reference's Options is supported, so nothing is listed.
+_SUPPORTED = ()
 
 
 def check_supported(opts: Options) -> None:

@@ -170,6 +170,53 @@ def perturbation_start(opts: Options, delta_w_last):
     return start, inc
 
 
+class RetryResult(NamedTuple):
+    K: Any
+    fac: Any
+    delta_x: Any
+    delta_c: Any
+    trials: Any
+    ok: Any
+    gave_up: Any
+
+
+def regularized_retry(opts: Options, factor, delta_cd, delta_w_last,
+                      singular=lambda fac: fac.singular) -> RetryResult:
+    """The inertia-correction loop of the always dual-regularized backends
+    (chained, sharded chain, arrow, structured low-rank; the reference's
+    ``chained_kkt.py:163-260``) around ``factor(delta_x, delta_c) -> (K,
+    fac, ok)``.  Unpivoted block elimination needs every diagonal block
+    invertible, which a full-rank Jacobian does not imply, so delta_c starts
+    at ``delta_cd`` (B,) and, on repeated singularity (``singular(fac)``),
+    escalates to at most 1e-4; delta_x follows ``perturbation_start``.  Each
+    round factors every lane; a lane that is done keeps its matrix, factor
+    and deltas."""
+    dxv = torch.zeros_like(delta_cd)
+    dcv = delta_cd
+    K, fac, ok = factor(dxv, dcv)
+    trials = torch.ones(delta_cd.shape, dtype=torch.int64, device=delta_cd.device)
+    gave_up = torch.zeros(delta_cd.shape, dtype=torch.bool, device=delta_cd.device)
+    while True:
+        active = ~(ok | gave_up) & (trials < opts.max_inertia_correction_rounds)
+        if not bool(active.any()):
+            break
+        was_singular = singular(fac)
+        only_dc = was_singular & (dcv <= delta_cd)
+        new_dc = torch.where(was_singular,
+                             torch.clamp(torch.maximum(dcv * 100.0, delta_cd),
+                                         max=1e-4), dcv)
+        start_val, inc_fact = perturbation_start(opts, delta_w_last)
+        bumped = torch.where(dxv == 0, start_val, dxv * inc_fact)
+        new_dx = torch.where(only_dc, dxv, bumped)
+        new_gave_up = new_dx > opts.max_hessian_perturbation
+        K2, fac2, ok2 = factor(new_dx, new_dc)
+        trials, dxv, dcv, K, fac, ok, gave_up = tree_where(
+            active, (trials + 1, new_dx, new_dc, K2, fac2, ok2, new_gave_up),
+            (trials, dxv, dcv, K, fac, ok, gave_up))
+    return RetryResult(K=K, fac=fac, delta_x=dxv, delta_c=dcv, trials=trials,
+                       ok=ok, gave_up=gave_up)
+
+
 class FactorResult(NamedTuple):
     fac: LDLTResult
     K: Any

@@ -19,14 +19,21 @@ with K_s the scenario block over w_s = [x_s | s_s | y_s] and K_0 the shared
 block over x0 (``algorithm/arrow_kkt.py``).  ``canonicalize_scenario`` gives
 a regular ``CanonicalNLP`` whose flat closures sum/stack the scenarios, plus
 the static ``ArrowInfo`` in its ``chain`` field, on which evaluation and the
-KKT backend dispatch.  The arrow backend solves one problem (B = 1); the
-reference's sharding of the scenario axis over devices (a ``psum`` of the
-Schur reduction) is not ported yet.
+KKT backend dispatch.  The arrow backend solves one problem (B = 1).
+
+The scenario axis over devices (the reference shards the scenario leaves
+over a mesh with ``device_put`` and GSPMD turns the Schur reduction into a
+``psum``): ``canonicalize_scenario(..., devices=[...])`` records one device
+per group of scenarios in ``ArrowInfo.devices``; the arrow factorization
+then cuts the S scenarios into that many contiguous groups, factors and
+back-solves each group on its device, and sums the groups' Schur and
+right-hand-side reductions on the first device
+(``algorithm/arrow_kkt.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +80,8 @@ class ArrowInfo:
     g_scen: Callable
     f0: Optional[Callable]
     eq_mask: np.ndarray  # (S, ms) bool
+    # one device per contiguous group of scenarios (empty: no groups)
+    devices: Tuple[torch.device, ...] = ()
     _cache: Dict[Any, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False)
 
@@ -132,11 +141,15 @@ def _tensor_tree(tree, dtype):
 
 
 def canonicalize_scenario(sn: ScenarioNLP, options: Optional[Options] = None,
-                          device=None) -> CanonicalNLP:
+                          device=None, devices: Optional[Sequence] = None
+                          ) -> CanonicalNLP:
     """The canonical form (B = 1) of a scenario problem
     (``ipopt_tpu/parallel/scenario.py:99-166``), on ``device`` (default the
     CPU): flat layout, the equality mask, canonicalization without scaling,
-    then the gradient scaling from the scenario Jacobians."""
+    then the gradient scaling from the scenario Jacobians.  ``devices`` (one
+    entry per group of scenarios, repeats allowed) splits the scenario
+    blocks of the arrow factorization into that many contiguous groups, each
+    factored on its device."""
     opts = options or Options()
     dtype = torch.float64 if opts.dtype == "float64" else torch.float32
     x0i = np.asarray(sn.x0_init, np.float64)
@@ -169,7 +182,8 @@ def canonicalize_scenario(sn: ScenarioNLP, options: Optional[Options] = None,
     gu_eff = np.where(g_U >= opts.nlp_upper_bound_inf, np.inf, g_U)
     eq_mask = (gl_eff == gu_eff).reshape(S, ms)
     info = ArrowInfo(S=S, n0=n0, ns=ns, ms=ms, f_scen=sn.f_scen,
-                     g_scen=sn.g_scen, f0=sn.f0, eq_mask=eq_mask)
+                     g_scen=sn.g_scen, f0=sn.f0, eq_mask=eq_mask,
+                     devices=tuple(torch.device(d) for d in devices or ()))
     base = canonicalize(flat, opts.replace(nlp_scaling_method="none"),
                         dtype=dtype, device=device)
     if base.struct.n != n0 + S * ns:

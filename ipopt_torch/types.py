@@ -138,8 +138,10 @@ def tree_map(fn, tree, *rest):
 def tree_where(mask: torch.Tensor, new, old):
     """Per-lane select over a tree of batched tensors: lane b takes ``new``
     where ``mask[b]`` and keeps ``old`` otherwise (``jnp.where(running, new,
-    old)`` of ``ipopt_tpu/batch.py:35``, written out over the batch axis)."""
-    return tree_map(lambda n, o: torch.where(_expand(mask, n), n, o), new, old)
+    old)`` of ``ipopt_tpu/batch.py:35``, written out over the batch axis).
+    Each leaf takes the mask on its own device."""
+    return tree_map(lambda n, o: torch.where(_expand(mask.to(n.device), n), n, o),
+                    new, old)
 
 
 def tree_take(tree, idx: torch.Tensor):
@@ -150,6 +152,14 @@ def tree_take(tree, idx: torch.Tensor):
 def tree_put(tree, idx: torch.Tensor, sub):
     """``tree`` with its lanes ``idx`` replaced by the lanes of ``sub``."""
     return tree_map(lambda t, s: t.index_copy(0, idx, s.to(t.dtype)), tree, sub)
+
+
+def contiguous_ranges(n: int, parts: int):
+    """``parts`` contiguous (lo, hi) ranges covering 0..n-1, their sizes
+    differing by one at most (empty ones at the end when parts > n)."""
+    sizes = [n // parts + (i < n % parts) for i in range(parts)]
+    starts = [sum(sizes[:i]) for i in range(parts)]
+    return [(lo, lo + z) for lo, z in zip(starts, sizes)]
 
 
 def max_init(v: torch.Tensor, init: float) -> torch.Tensor:

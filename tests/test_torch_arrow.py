@@ -194,7 +194,7 @@ def test_arrow_factorize_and_solve_match_reference():
         assert int(getattr(fp, k)[0]) == int(getattr(fr, k)), k
     assert (int(fp.num_pos[0]), int(fp.num_neg[0])) == \
         port_akkt.expected_inertia_arrow(cp)
-    _close(fp.ds[0], fr.ds, err_msg="ds")
+    _close(fp.ds[0][0], fr.ds, err_msg="ds")  # the one scenario group, lane 0
     _close(fp.root.d[0], fr.d0, rtol=1e-10, err_msg="Schur pivots")
     rng = np.random.default_rng(9)
     r0 = rng.standard_normal(cp.chain.n0)

@@ -25,7 +25,6 @@ import problems
 import ipopt_torch
 from ipopt_torch import convert, kkt as port_kkt
 from ipopt_torch.algorithm import step as port_step
-from ipopt_torch.algorithm.solver import UnsupportedOptionError
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -112,7 +111,10 @@ SLICE_F_MODULES = ("ipopt_torch.parallel.scenario", "ipopt_torch.algorithm.arrow
                    "ipopt_torch.algorithm.cg_penalty",
                    # slice H
                    "ipopt_torch.sens", "ipopt_torch.deriv_check",
-                   "ipopt_torch.profiling")
+                   "ipopt_torch.profiling",
+                   # slice I
+                   "ipopt_torch.parallel.chain_shard", "ipopt_torch.interfaces.ampl",
+                   "ipopt_torch.interfaces.capi", "ipopt_torch.native.build")
 
 
 def test_port_imports_no_jax():
@@ -275,11 +277,14 @@ def test_solve_without_device_needs_cuda(monkeypatch):
     dict(linear_solver="dense-ldlt-blocked"), dict(refinement_precision="double"),
     dict(gradient_approximation="finite-difference-values")])
 def test_unported_option_rejected(opt):
-    """chain_shard=True, the one option the port still lacks, is refused
-    whatever the other options."""
-    with pytest.raises(UnsupportedOptionError):
-        ipopt_torch.solve(ipopt_torch.modellib.hs071(), device="cpu",
-                          chain_shard=True, **opt)
+    """Since the chain axis over devices was ported, the port refuses no
+    option value: chain_shard=True is accepted whatever the other options,
+    and on the dense backend (which has no chain) the solve is the plain
+    one."""
+    res = ipopt_torch.solve(ipopt_torch.modellib.hs071(), device="cpu",
+                            print_level=0, chain_shard=True, **opt)
+    assert int(res.status) == 0
+    assert abs(float(res.obj) - 17.0140171451792) < 1e-6
 
 
 RESTO_CASES = {

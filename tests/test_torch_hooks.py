@@ -4,9 +4,9 @@ reference test's ``EighKKT``), finite-difference gradients and Jacobians,
 ``linear_solver="condensed-cholesky"`` (which the reference routes to
 ``dense-ldlt``), the derivative checker (``deriv_check.py``, and the
 ``derivative_test`` report of ``solve``), the profiling helpers
-(``profiling.py``) and the one option the port still refuses
-(``chain_shard=True``).  Solves are held to the reference's recorded
-results (``tools/torch_reference_values.py``): the same status,
+(``profiling.py``) and ``check_supported``, which refuses no option
+value since ``chain_shard=True`` was ported.  Solves are held to the
+reference's recorded results (``tools/torch_reference_values.py``): the same status,
 iterations, factorizations and KKT solves, objectives to rtol 1e-9.
 """
 import json
@@ -24,7 +24,7 @@ from ipopt_tpu import profiling as ref_prof
 import ipopt_torch
 from ipopt_torch import NLP, Options, modellib, profiling
 from ipopt_torch import deriv_check as port_dc
-from ipopt_torch.algorithm.solver import UnsupportedOptionError, check_supported
+from ipopt_torch.algorithm.solver import check_supported
 import torch_cases
 from test_torch_adaptive import assert_matches_recorded
 
@@ -162,8 +162,10 @@ def test_trace_writes_a_chrome_trace(tmp_path):
                                 dict(factorization_dtype="float32"),
                                 dict(hessian_approximation="limited-memory")])
 def test_chain_shard_is_refused(kw):
-    """chain_shard (the sharded chained factorization over devices) is the
-    one option value the port refuses until it is ported."""
-    with pytest.raises(UnsupportedOptionError):
-        check_supported(Options(chain_shard=True, **kw))
+    """chain_shard (the sharded chained factorization over devices) was the
+    last option value the port refused; now it is ported, check_supported
+    refuses nothing (tests/test_torch_chain_shard.py solves with it)."""
+    from ipopt_torch.algorithm.solver import _SUPPORTED
+    assert _SUPPORTED == ()
+    check_supported(Options(chain_shard=True, **kw))
     check_supported(Options(**kw))

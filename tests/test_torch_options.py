@@ -13,7 +13,7 @@ import torch
 
 import ipopt_torch
 from ipopt_torch import SolverReturn, modellib
-from ipopt_torch.algorithm.solver import UnsupportedOptionError, check_supported
+from ipopt_torch.algorithm.solver import check_supported
 import torch_cases
 from test_torch_adaptive import RECORDED, assert_matches_recorded
 
@@ -187,11 +187,12 @@ def test_timing_statistics_prints(capsys):
 
 
 def test_only_the_listed_options_are_refused():
-    """_SUPPORTED refuses only chain_shard=True (the sharded chained
-    factorization, a later slice); every other value is accepted."""
-    with pytest.raises(UnsupportedOptionError):
-        check_supported(ipopt_torch.Options(chain_shard=True))
-    for kw in (dict(mu_strategy="adaptive"), dict(mehrotra_algorithm=True),
+    """_SUPPORTED lists no option since the sharded chained factorization
+    (chain_shard=True) was ported: every value is accepted."""
+    from ipopt_torch.algorithm.solver import _SUPPORTED
+    assert _SUPPORTED == ()
+    for kw in (dict(chain_shard=True), dict(mu_strategy="adaptive"),
+               dict(mehrotra_algorithm=True),
                dict(corrector_type="primal-dual"), dict(warm_start_init_point=True),
                dict(replace_bounds=True), dict(dependency_detector="mumps"),
                dict(magic_steps=True), dict(soc_method=1), dict(recalc_y=True),

@@ -315,15 +315,14 @@ def test_banded_restoration_detects_infeasibility():
 
 
 def test_banded_options_and_batches():
-    """banded-bcr and multifrontal are admitted; the sharded chained
-    factorization (chain_shard=True) stays refused; stacking banded problems
-    is refused with a clear error; the entry point defaults to the card."""
+    """banded-bcr and multifrontal are admitted, also with chain_shard=True
+    (which, as in the reference, only the chained backend reads); stacking
+    banded problems is refused with a clear error; the entry point defaults
+    to the card."""
     from ipopt_torch.algorithm.solver import check_supported
     check_supported(ipopt_torch.Options(linear_solver="banded-bcr"))
     check_supported(ipopt_torch.Options(linear_solver="multifrontal"))
-    with pytest.raises(ipopt_torch.UnsupportedOptionError):
-        check_supported(ipopt_torch.Options(linear_solver="banded-bcr",
-                                            chain_shard=True))
+    check_supported(ipopt_torch.Options(linear_solver="banded-bcr", chain_shard=True))
     with pytest.raises(ValueError, match="one problem at a time"):
         ipopt_torch.stack_problems([modellib.luksan_vlcek1_flat(8)] * 2,
                                    ipopt_torch.Options(linear_solver="banded-bcr"))

@@ -468,6 +468,99 @@ for _policy in ("adaptive", "switch-once"):
 # one 21, as the port: the MINRES residuals there are rounding noise
 CASES["hs035_inexact_always"] = _c("hs035", dict(
     INEXACT, tol=1e-6, inexact_step_decomposition="always"), suite="inexact")
+# -- the chain axis sharded over devices (tests/test_chain_shard.py:59-78):
+#    K+1 = 32 stages over CHAIN_SHARDS shards, 4 blocks each ---------------
+CHAIN_SHARDS = 8
+CASES["lv1_128_chain_shard"] = _c(("luksan_vlcek1", (128, 4)), dict(
+    chain_shard=True, resto_phase=False), suite="chain_shard")
+CASES["lv1_128_chain_shard_mc19"] = _c(("luksan_vlcek1", (128, 4)), dict(
+    chain_shard=True, resto_phase=False, linear_system_scaling="mc19"),
+    suite="chain_shard")
+# dist_factorize_retry on shard_retry_problem() over CHAIN_SHARDS shards:
+# name -> (dtype, linear_system_scaling); the tool records the reference's
+# (delta_x, delta_c, trials, ok, gave_up, num_pos, num_neg, num_zero) as
+# "shard_retry:<name>"
+# the scenario case of tests/test_scenario.py:70-97 (S = 16, ns = 4, seed 3),
+# which test_torch_distributed.py solves over 8 scenario groups
+CASES["scen_qp_16"] = _c(("scenario", "stoch_qp", (16, 4, 3)), suite="distributed")
+# the batch of tests/test_batch.py:48-61 (HS071 with the equality's right-hand
+# side at 40 + delta); the tool records the reference's solve_batched of it
+# over an 8-device mesh as "batch:hs071_shifted" (status, iterations,
+# objective, x per lane)
+BATCH_DELTAS = tuple(0.1 * i for i in range(8))
+SHARD_RETRY = {"float64_mc19": ("float64", "mc19"), "float32": ("float32", "none")}
+
+
+def shard_retry_problem(nb=40, b=8, n=5, seed=3):
+    """(diag, sub, kind, exp_pos, exp_neg): a BTD whose x blocks have
+    negative curvature, so that the zero-delta inertia is wrong and the
+    retry loop must raise delta_x; kind 0 on the x slots, 1 on the y slots."""
+    rng = np.random.RandomState(seed)
+    diag = np.zeros((nb, b, b))
+    H = rng.standard_normal((nb, n, n))
+    diag[:, :n, :n] = 0.5 * (H + H.transpose(0, 2, 1)) * 0.05 + 0.02 * np.eye(n)
+    diag[::4, 0, 0] -= 0.05
+    J = rng.standard_normal((nb, b - n, n))
+    diag[:, n:, :n] = J
+    diag[:, :n, n:] = J.transpose(0, 2, 1)
+    sub = np.zeros((nb, b, b))
+    sub[:, :n, :n] = 0.01 * rng.standard_normal((nb, n, n))
+    sub[-1] = 0
+    kind = np.zeros((nb, b), np.int8)
+    kind[:, n:] = 1
+    return diag, sub, kind, nb * n, nb * (b - n)
+
+
+# HS071 through solve_from_c with ctypes callbacks, with the user's
+# derivatives ("user") or finite differences ("fd"); the tool records the
+# reference's (status, x, obj) as "capi:<name>"
+CAPI = ("user", "fd")
+
+
+def capi_callbacks(mod):
+    """HS071's callbacks in the C signatures of ``mod`` (either package's
+    ``interfaces.capi``): the ctypes objects, to keep alive, and their
+    addresses."""
+    import ctypes as ct
+
+    @mod._EVAL_F
+    def f(n, x, obj, ud):
+        obj[0] = x[0] * x[3] * (x[0] + x[1] + x[2]) + x[2]
+        return 1
+
+    @mod._EVAL_G
+    def g(n, x, m, out, ud):
+        out[0] = x[0] * x[1] * x[2] * x[3]
+        out[1] = x[0] ** 2 + x[1] ** 2 + x[2] ** 2 + x[3] ** 2
+        return 1
+
+    @mod._EVAL_GRAD_F
+    def gf(n, x, out, ud):
+        out[0] = x[3] * (2 * x[0] + x[1] + x[2])
+        out[1] = x[0] * x[3]
+        out[2] = x[0] * x[3] + 1.0
+        out[3] = x[0] * (x[0] + x[1] + x[2])
+        return 1
+
+    @mod._EVAL_JAC_G
+    def jg(n, x, m, J, ud):
+        vals = [x[1] * x[2] * x[3], x[0] * x[2] * x[3], x[0] * x[1] * x[3],
+                x[0] * x[1] * x[2], 2 * x[0], 2 * x[1], 2 * x[2], 2 * x[3]]
+        for i, v in enumerate(vals):
+            J[i] = v
+        return 1
+    keep = (f, g, gf, jg)
+    return keep, [ct.cast(c, ct.c_void_p).value for c in keep]
+
+
+def capi_solve(mod, name):
+    """``mod.solve_from_c`` on HS071 -> (status, x, obj, ...)."""
+    keep, (f, g, gf, jg) = capi_callbacks(mod)
+    user = name == "user"
+    return mod.solve_from_c(4, 2, [1.0, 5.0, 5.0, 1.0], [1.0] * 4, [5.0] * 4,
+                            [25.0, 40.0], [2e19, 40.0], f, g,
+                            gf if user else 0, jg if user else 0, 0,
+                            "{'tol': 1e-7, 'print_level': 0}")
 CASES["hs071_ls_none"] = _c("hs071_d0", dict(line_search_method="none"),
                             suite="inexact")
 # hs035 under the l1-penalty acceptor: nu reaches ~4e15 against a constraint
@@ -718,11 +811,17 @@ def solve_port(name: str, iterates: dict):
         trials.append(int(k["ls_trials"]))
         return True
 
-    res = ipopt_torch.solve(build(case["problem"], "port"), device="cpu",
-                            print_level=0, it0=it0, intermediate_callback=cb,
-                            custom_kkt_solver=(eigh_kkt("port") if case.get("custom")
-                                               else None),
-                            **case["opts"])
+    from ipopt_torch.parallel.chain_shard import set_chain_mesh
+    if case["opts"].get("chain_shard"):
+        set_chain_mesh(["cpu"] * CHAIN_SHARDS)
+    try:
+        res = ipopt_torch.solve(build(case["problem"], "port"), device="cpu",
+                                print_level=0, it0=it0, intermediate_callback=cb,
+                                custom_kkt_solver=(eigh_kkt("port") if case.get("custom")
+                                                   else None),
+                                **case["opts"])
+    finally:
+        set_chain_mesh(None)
     iterates[name] = res.iterate
     c = res.counters
     return res, dict(

@@ -5,7 +5,9 @@ the port's parity tests read.
     python3 tools/torch_reference_values.py [--out PATH] [case ...]
 
 With case names, only those are solved, and the file keeps its other
-entries; ``--out`` writes another file (to run subsets in parallel).  Each case records status, iterations, objective, the counters,
+entries (``capi`` alone records the ``solve_from_c`` entries); ``--out``
+writes another file (to run subsets in parallel).  Each case records
+status, iterations, objective, the counters,
 the restoration count and the per-iteration mu and line-search trials (and
 the final iterate, for the cases marked ``record_iterate``; the
 per-iteration (iteration, objective, inf_pr, inf_du, mu, alpha_pr,
@@ -21,6 +23,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 TESTS = os.path.join(os.path.dirname(HERE), "tests")
 sys.path.insert(0, TESTS)
 sys.path.insert(0, os.path.dirname(HERE))
+
+# eight virtual CPU devices, as tests/conftest.py sets them: the chain_shard
+# cases shard the chain axis over them
+if "host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                               + " --xla_force_host_platform_device_count=8").strip()
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
@@ -49,8 +57,17 @@ def solve_case(name, done):
         return True
 
     custom = torch_cases.eigh_kkt("ref") if case.get("custom") else None
+    if case["opts"].get("chain_shard"):
+        from jax.sharding import Mesh
+        from ipopt_tpu.parallel.chain_shard import set_chain_mesh
+        set_chain_mesh(Mesh(np.array(jax.devices()[:torch_cases.CHAIN_SHARDS]),
+                            ("chain",)), "chain")
+    # the sharded solve cannot run a host callback inside its loop (XLA's
+    # partitioner refuses a replicated side-effecting op): no per-iteration
+    # record there
+    sharded = bool(case["opts"].get("chain_shard"))
     res = ipopt_tpu.solve(torch_cases.build(case["problem"], "ref"), print_level=0,
-                          it0=it0, intermediate_callback=cb,
+                          it0=it0, intermediate_callback=None if sharded else cb,
                           custom_kkt_solver=custom, **case["opts"])
     c = res.counters
     extra = {}
@@ -88,8 +105,51 @@ def sens_record(name, table):
     return [np.asarray(v).tolist() for v in jax.tree.leaves(out)]
 
 
+def shard_retry_record(name):
+    """The reference's dist_factorize_retry on torch_cases.shard_retry_problem()
+    over CHAIN_SHARDS virtual devices: (delta_x, delta_c, trials, ok,
+    gave_up, num_pos, num_neg, num_zero)."""
+    from jax.sharding import Mesh
+    from ipopt_tpu.linalg.block_tridiag import BTDMatrix
+    from ipopt_tpu.parallel import chain_shard as cs
+    dtype, scaling = torch_cases.SHARD_RETRY[name]
+    diag, sub, kind, exp_pos, exp_neg = torch_cases.shard_retry_problem()
+    cs.set_chain_mesh(Mesh(np.array(jax.devices()[:torch_cases.CHAIN_SHARDS]),
+                           ("chain",)), "chain")
+    jdt = getattr(jax.numpy, dtype)
+    K = BTDMatrix(diag=jax.numpy.asarray(diag, jdt), sub=jax.numpy.asarray(sub, jdt))
+    fac, dx, dc, tr, ok, gu = cs.dist_factorize_retry(
+        K, jax.numpy.asarray(kind), ipopt_tpu.Options(linear_system_scaling=scaling),
+        jax.numpy.asarray(1e-8), jax.numpy.asarray(0.0), exp_pos, exp_neg)
+    return [float(dx), float(dc), int(tr), bool(ok), bool(gu), int(fac.num_pos),
+            int(fac.num_neg), int(fac.num_zero)]
+
+
+def batch_record():
+    """The reference's solve_batched of the HS071 batch BATCH_DELTAS, its
+    lanes sharded over an 8-device mesh (tests/test_batch.py:48-61)."""
+    from jax.sharding import Mesh
+    from ipopt_tpu.batch import solve_batched
+    batch = [ipopt_tpu.NLP(**torch_cases._hs071_spec(jax.numpy, jax.numpy.array, d))
+             for d in torch_cases.BATCH_DELTAS]
+    res = solve_batched(batch, mesh=Mesh(np.array(jax.devices()[:8]), ("batch",)))
+    return dict(status=np.asarray(res.status).tolist(),
+                iter_count=np.asarray(res.iter_count).tolist(),
+                obj=np.asarray(res.obj).tolist(), x=np.asarray(res.x).tolist())
+
+
+def capi_record(name):
+    """The reference's solve_from_c on torch_cases.capi_solve's HS071:
+    (status, x, obj)."""
+    from ipopt_tpu.interfaces import capi
+    status, x, obj = torch_cases.capi_solve(capi, name)[:3]
+    return dict(status=int(status), x=[float(v) for v in x], obj=float(obj))
+
+
 def main(names):
-    names = names or sorted(torch_cases.CASES)
+    # "capi" records the solve_from_c entries alone
+    capi_only = names == ["capi"]
+    names = [] if capi_only else (names or sorted(torch_cases.CASES))
     table = {}
     if os.path.exists(OUT):
         with open(OUT) as fh:
@@ -111,6 +171,17 @@ def main(names):
         if torch_cases.SENS[name][0] in names:
             table[f"sens:{name}"] = sens_record(name, table)
             print(f"sens:{name} recorded", flush=True)
+    if any(torch_cases.CASES[n]["suite"] == "distributed" for n in names):
+        table["batch:hs071_shifted"] = batch_record()
+        print("batch:hs071_shifted recorded", flush=True)
+    if any(torch_cases.CASES[n]["suite"] == "chain_shard" for n in names):
+        for name in sorted(torch_cases.SHARD_RETRY):
+            table[f"shard_retry:{name}"] = shard_retry_record(name)
+            print(f"shard_retry:{name} recorded", flush=True)
+    if capi_only or len(names) == len(torch_cases.CASES):
+        for name in torch_cases.CAPI:
+            table[f"capi:{name}"] = capi_record(name)
+            print(f"capi:{name} recorded", flush=True)
     with open(OUT, "w") as fh:
         json.dump(table, fh, indent=1, sort_keys=True)
         fh.write("\n")
