@@ -5,15 +5,21 @@ Phases, in order (any failure exits non-zero before the result line):
 2. the build of every kernel from the sources in this checkout (one nvcc
    per source, all at once);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   its paths give it: K1 bit for bit (NaN in the same places) at (512, 7, 7)
-   and at b = 1 ... 1024 (``K1_WIDTHS``) in float32 and float64, each stack
-   with a guarded block and a block with an inf entry, timed beside its
-   bound; K2 at every BCR level of the chained path,
-   (64|32|...|1, 156, 156) float64, at b = 1, 8, 16, 32 (one scalar sweep,
-   exactly equal), 33, 48, 280 and 408, in float32, and above the cluster
-   variant's widths (the device-memory variant) at b = 417, 496, 568, 1288
-   in float64 and 577, 1288 in float32, on seeded quasi-definite blocks,
-   timed beside the bound;
+   its paths give it: K1 at (512, 7, 7) and at b = 1 ... 1024 (``K1_WIDTHS``,
+   ragged widths among them) in float32 and float64, each stack with a
+   guarded block, a -tiny pivot, a NaN and an inf block, timed beside its
+   bound: the warp and CTA variants, and the blocked one in float32, bit
+   for bit (NaN in the same places), the blocked one in float64 by
+   ``block_ldlt.k1_rule`` (the finite pattern, per-block inertia, a backward
+   error within ``K1_BACKWARD_FACTOR`` times the plain version's own plus
+   b u);
+   K1's CTA and blocked variants side by side at ``K1_VARIANT_SHAPES``, the
+   times its plan follows; K2 at every BCR level of the chained path,
+   (64|32|...|1, 156, 156) float64, at b = 1, 8, 16, 24, 32 in both types
+   (the warp variant, bit for bit with a NaN and an inf block), 33, 48, 280
+   and 408, in float32, and above the cluster variant's widths (the
+   device-memory variant) at b = 417, 496, 568, 1288 in float64 and 577,
+   1288 in float32, on seeded quasi-definite blocks, timed beside the bound;
 4. the HS071 path: ``solve_batched`` on the 512-instance HS071 family in
    float64, with every kernel's launch count set to 0 just before and read
    just after; then K1 on every input one more warm solve gives it, bit for
@@ -56,9 +62,11 @@ Phases, in order (any failure exits non-zero before the result line):
    N = 100 (76 blocks of 408; restoration 41 blocks of 1,288): its first
    iterations against the reference's, K2 against its plain version on
    every input of the solve whose launches are counted (its wall less the
-   checks' seconds is the solve's own), the same status with the plain
-   version in K2's place, and the residual ratio in the step of iteration
-   4 with and without ``linear_system_scaling="mc19"``; E4: LuksanVlcek 4 and 5 at
+   checks' seconds is the solve's own), the same solve with the plain
+   version in K2's place (replayed from CUDA graphs) to the same status and
+   the same breakdown of its linear solves at iteration 4, and the residual
+   ratio in the step of iteration 4 with and without
+   ``linear_system_scaling="mc19"``; E4: LuksanVlcek 4 and 5 at
    n = 1e5 with ``mu_strategy="adaptive"`` on the banded backend (status 0,
    n = 2000 card against CPU, K2 on each solve's inputs against its plain
    version); and the banded restoration (an infeasible chain, card against
@@ -79,9 +87,10 @@ Phases, in order (any failure exits non-zero before the result line):
 11. slice G, float64: G1 the multifrontal backend at full width,
    ``mittelmann_dist_control_3d(24)`` (41,472 KKT unknowns in 15 tree
    levels), cold (capturing K1's inputs) then warm with the counts from 0:
-   status 0, K1 once per level of every factorization, bit-equal to its
-   plain version on every input and timed per level beside its bound, the
-   plain version and ``torch.linalg.ldl_factor_ex``; N = 16 against the
+   status 0, K1 once per level of every factorization, held to its plain
+   version on every input (``k1_agrees``: the blocked levels by the rule)
+   and timed per level beside its bound, the plain version and
+   ``torch.linalg.ldl_factor_ex``; N = 16 against the
    reference's values, N = 10 card against CPU; G2 K1 on seeded stacks at
    N = 32's widest fronts; G3 the multifrontal restoration (card against
    CPU) and ``mittelmann_dist_control(30)`` on the multifrontal and banded
@@ -112,8 +121,10 @@ Phases, in order (any failure exits non-zero before the result line):
    ms per iteration beside the unsharded solve, K2 launches per
    factorization (interiors and reduced system), every K2 input held by
    MittK2Check's rule (stacked by shape; a block whose input is not finite
-   by the finite pattern alone, and counted), K2 timed on the interior and
-   reduced levels; I2 the HS071 family with four device groups
+   by the finite pattern alone, and counted), the blocks whose pivots miss
+   the chained path's PATH_TOL_D listed beside the plain version's own
+   spread (``i1_pivot_diagnosis``), K2 timed on the interior and reduced
+   levels; I2 the HS071 family with four device groups
    (``solve_batched(devices=...)``) lane for lane equal to the one-device
    solve; I3 ``stochastic_qp(8192, 30)`` in four scenario groups
    (``canonicalize_scenario(devices=...)``): F1's status and iterations,
@@ -126,13 +137,15 @@ Phases, in order (any failure exits non-zero before the result line):
 14. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error,
    time, the plain version's and the library call's time and the least time
    the card could take, both kernels' launches per path, K2's numbers per
-   path and its launch plans, K1's per multifrontal level;
+   path and its launch plans, K1's per multifrontal level, and the launches
+   of each variant over the whole run;
 15. the last line: ``{"ok": true, "device": {...}}``.
 
 Each phase's start is printed with the seconds since the script started.
 It needs a CUDA device and the ``ipopt_torch`` package next to it;
 without either it fails.  It imports nothing of JAX.
 """
+import contextlib
 import json
 import os
 import statistics
@@ -164,8 +177,9 @@ GLOBAL_WIDTHS_F64 = (417, 496, 568, 1288)
 GLOBAL_WIDTHS_F32 = (577, 1288)
 # K2's first BCR level on the banded configurations (nb, b): LuksanVlcek1
 # flat 1e5 and its restoration NLP, Mittelmann N = 100 and its restoration;
-# and on the chained mittelmann_bndry_control(100) (51 blocks of 604).
-BANDED_STACKS = ((6250, 16), (8333, 24), (38, 408), (20, 1288), (25, 604))
+# on the chained mittelmann_bndry_control(100) (51 blocks of 604); and
+# LuksanVlcek 4 and 5 flat 1e5 (E4).
+BANDED_STACKS = ((6250, 16), (8333, 24), (38, 408), (20, 1288), (25, 604), (12500, 8))
 
 
 def log(msg):
@@ -178,6 +192,21 @@ T0 = time.perf_counter()
 def phase(name):
     """A phase's start, with the seconds since the script started."""
     log(f"[{time.perf_counter() - T0:.1f} s] phase: {name}")
+
+
+# Wall seconds of the checks and timings added in PR-11's slice, by label
+# (printed before the kernels line): what each costs of the time limit.
+CHECK_SECONDS = {}
+
+
+@contextlib.contextmanager
+def timed(label):
+    """Adds the wall seconds of the block to CHECK_SECONDS[label]."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        CHECK_SECONDS[label] = CHECK_SECONDS.get(label, 0.0) + time.perf_counter() - t0
 
 
 def card_line():
@@ -236,47 +265,88 @@ def same_values(x, y):
 
 def k1_bound(nb, b, dtype):
     """(bound ms, bound_by, bytes, ops) of nb LDL^T factorizations of width b:
-    A read, L and d written, against the live triangle's work (a product, a
-    quotient and a difference per entry k < j <= i, a quotient per L entry)."""
+    the lower triangle of A read, L (b x b) and d written, against the least
+    work of an unpivoted LDL^T: at each step with s rows below the pivot, s
+    quotients for the column of L and one multiply-add (two operations) per
+    entry of the trailing lower triangle, s (s + 1) / 2 of them."""
     import torch
     esize = torch.finfo(dtype).bits // 8
-    nbytes = esize * (2 * nb * b * b + nb * b)
-    ops = nb * sum(3 * s * (s + 1) // 2 + s for s in range(b))
+    nbytes = esize * nb * (b * (b + 1) // 2 + b * b + b)
+    ops = nb * sum(s * (s + 1) + s for s in range(b))
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[str(dtype)[6:]] * 1e3
     bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
     return bound_ms, bound_by, nbytes, ops
 
 
-# K1 is held to its plain version bit for bit at these widths, in float32 and
-# float64, each stack with a guarded block (an exactly zero pivot) and a
-# block with an inf entry.
-K1_WIDTHS = (1, 7, 8, 16, 32, 33, 64, 156, 170, 416, 1024)
+# K1 is held to its plain version at these widths, in float32 and float64,
+# each stack with a guarded block (an exactly zero pivot), from 3 blocks a
+# block with a -tiny pivot, from 4 a block with a NaN entry, and a block with
+# an inf entry; 241, 345 and 1000 are ragged (not a multiple of the blocked
+# variant's panel of 32).
+K1_WIDTHS = (1, 7, 8, 16, 32, 33, 64, 156, 170, 241, 345, 416, 1000, 1024)
+
 
 
 def k1_blocks(rng, nb, b, dtype):
     """Seeded KKT-like blocks: block 0 with an exactly zero pivot (the whole
     block at b = 1), the last block with an inf entry below the diagonal
-    (and its mirror)."""
+    (and its mirror); from nb = 3 block 1 with a -tiny pivot (a subnormal
+    negative pivot and zeros beside it), from nb = 4 block nb - 2 with a NaN
+    entry below the diagonal (and its mirror)."""
+    import torch
     A = kkt_like_blocks(rng, nb, b, dtype)
     if b == 1:
         A[0] = 0.0
     if nb > 1:
         i, j = b - 1, b // 2
         A[-1, i, j] = A[-1, j, i] = float("inf")
+    if nb > 2:
+        k = b // 2
+        A[1, k, :] = 0.0
+        A[1, :, k] = 0.0
+        A[1, k, k] = -1e-310 if dtype == torch.float64 else -1e-40
+    if nb > 3 and b > 1:
+        i, j = b - 1, b // 3
+        A[-2, i, j] = A[-2, j, i] = float("nan")
     return A
 
 
+def k1_agrees(A, L_k, d_k, L_p, d_p, pivot_tol=0.0):
+    """K1 against its plain version on one input, by its variant: the warp
+    and CTA variants, and the blocked one in float32, bit for bit (NaN in the
+    same places); the blocked one in float64 by k1_rule.  Returns (ok, why,
+    "bit-equal" or "rule", worst backward ratio or 0)."""
+    import torch
+    from ipopt_torch.linalg import block_ldlt as bl
+    variant = bl.plan(A.shape[0], A.shape[-1], A.dtype).variant
+    if variant != "blocked" or A.dtype == torch.float32:
+        ok = same_values(L_k, L_p) and same_values(d_k, d_p)
+        return ok, f"bit-equal {ok}", "bit-equal", 0.0
+    ok, why, worst = bl.k1_rule(A, L_k, d_k, L_p, d_p, pivot_tol)
+    return ok, why, "rule", worst
+
+
+# K1's CTA and blocked variants timed on the same seeded float64 stacks
+# (block_ldlt.plan follows these times where both run): small nb at large b,
+# and the multifrontal levels and scenario blocks the CTA variant takes.
+K1_VARIANT_SHAPES = ((1, 40), (1, 64), (1, 128), (1, 198), (1, 240), (30, 240),
+                     (104, 161), (16, 156), (156, 82), (258, 56), (300, 64),
+                     (400, 48), (362, 36), (1024, 128))
+
+
 def check_k1(dev, card):
-    """K1 against block_ldlt_plain on the card, bit for bit (torch.equal, NaN
-    in the same places), at every width of K1_WIDTHS in both types; its
-    device time at each float64 shape beside its bound.  Returns the seeded
-    (512, 7, 7) float64 timings."""
+    """K1 against block_ldlt_plain on the card at every width of K1_WIDTHS in
+    both types (the warp and CTA variants bit for bit, torch.equal with NaN
+    in the same places; the blocked variant by k1_rule); its time at each
+    float64 shape beside its bound; the CTA and blocked variants side by
+    side at K1_VARIANT_SHAPES.  Returns the seeded (512, 7, 7) float64
+    timings and the side-by-side times."""
     import torch
     from ipopt_torch.linalg import block_ldlt as bl
     from ipopt_torch.profile_main import device_us_per_launch
     rng = np.random.default_rng(0)
-    cases = [(FAMILY_B, 7)] + [(64 if b <= 64 else 16 if b <= 170 else 2, b)
+    cases = [(FAMILY_B, 7)] + [(64 if b <= 64 else 16 if b <= 170 else 4, b)
                                for b in K1_WIDTHS]
     cases += [(1, 198), (1, 1024)]
     for dtype in (torch.float64, torch.float32):
@@ -286,31 +356,68 @@ def check_k1(dev, card):
             L_k, d_k = bl.block_ldlt(A)
             torch.cuda.synchronize()
             launched = bl.block_ldlt.launches - before
-            L_p, d_p = bl.block_ldlt_plain(A)
-            torch.cuda.synchronize()
-            ok = launched == 1 and same_values(L_k, L_p) and same_values(d_k, d_p)
+            with timed(f"K1 plain version at b >= 1000, {str(dtype)[6:]}"
+                       if b >= 1000 else "K1 plain version at b < 1000"):
+                L_p, d_p = bl.block_ldlt_plain(A)
+                torch.cuda.synchronize()
+            agree, why, _, _ = k1_agrees(A, L_k, d_k, L_p, d_p)
+            ok = launched == 1 and agree
             fin = torch.isfinite(L_p) & torch.isfinite(L_k)
             err = float(torch.where(fin, L_k - L_p, 0.0).abs().max())
             pl = bl.plan(nb, b, dtype)
             line = (f"K1 check nb={nb} b={b} {str(dtype)[6:]}: plan {pl.variant} "
                     f"rows={pl.rows} lanes={pl.lanes} grid={pl.grid} threads={pl.threads} "
-                    f"shared={pl.smem} B; bit-equal to the plain version "
-                    f"{ok} (max abs err on finite entries {err:.3e}; NaN entries "
+                    f"shared={pl.smem} B, {pl.kernels} CUDA launches per call; {why} "
+                    f"(max abs err on finite entries {err:.3e}; NaN entries "
                     f"{int(torch.isnan(L_p).sum())})")
+            del L_k, d_k, L_p, d_p
             if dtype == torch.float64:
                 # timed without the inf block, whose warp or CTA takes the
                 # library division
                 At = A[:-1] if nb > 1 else A
-                us, _ = device_us_per_launch(lambda: bl.block_ldlt(At), "ldlt_",
-                                             rounds=50 if b <= 64 else 10 if b <= 240 else 2)
                 bound_ms, bound_by, _, _ = k1_bound(At.shape[0], b, dtype)
-                line += (f"; {us:.2f} us device time per launch at ({At.shape[0]}, {b}, "
-                         f"{b}), bound {bound_ms * 1e3:.4f} us ({bound_by}), "
+                if pl.variant == "blocked":
+                    us = time_cuda(lambda: bl.block_ldlt(At), reps=5, warmup=1) * 1e3
+                    source = "CUDA events per call"
+                else:
+                    us, _ = device_us_per_launch(lambda: bl.block_ldlt(At), "ldlt_",
+                                                 rounds=50 if b <= 64 else 10)
+                    source = "device time per launch"
+                line += (f"; {us:.2f} us ({source}) at ({At.shape[0]}, {b}, {b}), bound "
+                         f"{bound_ms * 1e3:.4f} us ({bound_by}), "
                          f"{us / (bound_ms * 1e3):.1f}x")
             log(line + f" -> {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"K1 differs from its plain version at nb={nb} "
-                                 f"b={b} {dtype} (launches {launched})")
+                                 f"b={b} {dtype} (launches {launched}): {why}")
+    variants = {}
+    for dtype in (torch.float64, torch.float32):
+        t_dtype = time.perf_counter()
+        for nb, b in K1_VARIANT_SHAPES:
+            A = kkt_like_blocks(rng, nb, b, dtype, tiny_block=False).to(dev)
+            L_p, d_p = bl.block_ldlt_plain(A)
+            row = {}
+            for variant in ("cta", "blocked"):
+                pl = bl.variant_plan(variant, nb, b, A.dtype)
+                L_k, d_k = bl.launch(A, pl)
+                agree, why, _ = (bl.k1_rule(A, L_k, d_k, L_p, d_p)
+                                 if variant == "blocked" and dtype == torch.float64
+                                 else (same_values(L_k, L_p) and same_values(d_k, d_p),
+                                       "bit-equal", 0.0))
+                if not agree:
+                    raise SystemExit(f"K1 {variant} at ({nb}, {b}) {dtype} differs from "
+                                     f"its plain version: {why}")
+                row[variant] = time_cuda(lambda: bl.launch(A, pl), reps=10, warmup=2)
+            del L_k, d_k, L_p, d_p
+            bound_ms, bound_by, _, _ = k1_bound(nb, b, dtype)
+            chosen = bl.plan(nb, b, dtype).variant
+            variants[f"{nb}x{b}_{str(dtype)[6:]}"] = dict(row, plan=chosen, bound_ms=bound_ms)
+            log(f"K1 variants ({nb}, {b}, {b}) {str(dtype)[6:]}, seeded: cta "
+                f"{row['cta']:.4f} ms, blocked {row['blocked']:.4f} ms per call (CUDA "
+                f"events), bound {bound_ms:.6f} ms ({bound_by}); the plan takes {chosen}; "
+                f"card {card}")
+        CHECK_SECONDS[f"K1 CTA against blocked, {str(dtype)[6:]}"] = (
+            time.perf_counter() - t_dtype)
     A = kkt_like_blocks(rng, FAMILY_B, 7, torch.float64).to(dev)
     ms = time_cuda(lambda: bl.block_ldlt(A))
     us, n = device_us_per_launch(lambda: bl.block_ldlt(A), "ldlt_", rounds=50)
@@ -320,7 +427,8 @@ def check_k1(dev, card):
         f"launch (torch.profiler, {n} launches), {ms:.4f} ms per wrapper call, plain "
         f"{plain_ms:.4f} ms; torch.linalg.ldl_factor_ex (Bunch-Kaufman pivoting, "
         f"another function: a yardstick only) {ldl_ms:.4f} ms; card {card}")
-    return dict(seeded_us=us, seeded_call_ms=ms, plain_ms=plain_ms, ldl_factor_ms=ldl_ms)
+    return dict(seeded_us=us, seeded_call_ms=ms, plain_ms=plain_ms, ldl_factor_ms=ldl_ms,
+                variants=variants)
 
 
 def check_k1_on_path(dev, inputs, card):
@@ -344,9 +452,10 @@ def check_k1_on_path(dev, inputs, card):
     for A in inputs:
         L_k, d_k = bl.block_ldlt(A)
         L_p, d_p = bl.block_ldlt_plain(A)
-        if not (same_values(L_k, L_p) and same_values(d_k, d_p)):
+        ok, why, _, _ = k1_agrees(A, L_k, d_k, L_p, d_p)
+        if not ok:
             raise SystemExit(f"K1 on the path: an input of {tuple(A.shape)} where "
-                             f"the kernel differs from its plain version")
+                             f"the kernel differs from its plain version: {why}")
         for x, y in ((L_k, L_p), (d_k, d_p)):
             fin = torch.isfinite(x) & torch.isfinite(y)
             max_abs_err = max(max_abs_err, float(torch.where(fin, x - y, 0.0).abs().max()))
@@ -403,6 +512,22 @@ def quasi_definite_blocks(rng, nb, b, dtype, tiny_block=True):
     return torch.as_tensor(A, dtype=dtype)
 
 
+def k2_small_blocks(rng, nb, b, dtype):
+    """Seeded KKT-like blocks for K2's warp variant (b <= 32): block 0 with
+    an exactly zero pivot, the last block with an inf entry and, from
+    nb = 3, the one before it with a NaN entry (each with its mirror)."""
+    A = kkt_like_blocks(rng, nb, b, dtype)
+    if b == 1:
+        A[0] = 0.0
+    if nb > 1:
+        i, j = b - 1, b // 2
+        A[-1, i, j] = A[-1, j, i] = float("inf")
+    if nb > 2:
+        i, j = b - 1, b // 3
+        A[-2, i, j] = A[-2, j, i] = float("nan")
+    return A
+
+
 def k2_tolerance(b, dtype):
     """(tolerance on |dAinv| / max(1, max|Ainv|), tolerance on |dd| / |d|,
     reason) of K2 against its plain version on the card."""
@@ -428,7 +553,8 @@ def check_k2(dev):
     b_main = 156
     main = [(ne, b_main, torch.float64, quasi_definite_blocks)
             for ne in (64, 32, 16, 8, 4, 2, 1)]
-    cases = [(16, b, torch.float64, kkt_like_blocks) for b in (1, 8, 16, 32)]
+    cases = [(16, b, dt, k2_small_blocks) for b in (1, 8, 16, 24, 32)
+             for dt in (torch.float64, torch.float32)]
     cases += [(16, b, torch.float64, quasi_definite_blocks) for b in (33, 48)] + main
     cases += [(4, 280, torch.float64, quasi_definite_blocks),
               (2, 408, torch.float64, quasi_definite_blocks),
@@ -439,12 +565,30 @@ def check_k2(dev):
     main_err = 0.0
     global_ms = {}
     for nb, b, dtype, make in cases:
+        t_case = time.perf_counter()
         A = make(rng, nb, b, dtype).to(dev)
         d_k, inv_k = k2.block_ldlt_inv(A)
         torch.cuda.synchronize()
         d_p, inv_p = k2.block_ldlt_inv_plain(A)
         torch.cuda.synchronize()
         tol_inv, tol_d, why = k2_tolerance(b, dtype)
+        pl = k2.plan(nb, b, dtype)
+        if b <= k2.PANEL:
+            # the warp variant: bit for bit, NaN in the same places
+            ok = same_values(inv_k, inv_p) and same_values(d_k, d_p)
+            ms = time_cuda(lambda: k2.block_ldlt_inv(A), reps=20, warmup=2)
+            log(f"K2 check nb={nb} b={b} {str(dtype)[6:]} ({make.__name__}): plan "
+                f"{pl.variant} lanes={pl.lanes} grid={pl.grid} threads={pl.threads} "
+                f"shared={pl.smem} B; bit-equal to the plain version (NaN entries "
+                f"{int(torch.isnan(inv_p).sum())}) {ok}; {ms:.4f} ms per launch -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"K2 differs from its plain version at nb={nb} b={b} "
+                                 f"{dtype}")
+            label = "K2 warp variant, seeded b <= 32"
+            CHECK_SECONDS[label] = (CHECK_SECONDS.get(label, 0.0)
+                                    + time.perf_counter() - t_case)
+            continue
         err_inv = float((inv_k - inv_p).abs().max())
         err_d = float((d_k - d_p).abs().max())
         # block 0's guarded pivot puts 1/tiny into its inverse: scale by the rest
@@ -460,7 +604,6 @@ def check_k2(dev):
                       .abs().max()) if bool(nonsingular.any()) else 0.0
         finite = bool(torch.isfinite(inv_k).all() and torch.isfinite(d_k).all())
         ok = rel_inv <= tol_inv and d_ok and signs_ok and finite
-        pl = k2.plan(nb, b, dtype)
         ms = time_cuda(lambda: k2.block_ldlt_inv(A), reps=5 if b > 1000 else 20, warmup=2)
         bound_ms, bound_by, _, _ = k2_bound(nb, b, dtype)
         if pl.variant == "global":
@@ -495,9 +638,11 @@ def check_k2(dev):
         plain_ms = time_cuda(lambda: k2.block_ldlt_inv_plain(A), reps=2, warmup=1)
         inv_ms = time_cuda(lambda: torch.linalg.inv_ex(A), reps=5, warmup=1)
         bound_ms, bound_by, nbytes, ops = k2_bound(nb, b)
-        ok = rel_inv <= tol_inv and rel_d <= tol_d
+        ok = (same_values(inv_k, inv_p) and same_values(d_k, d_p) if b <= k2.PANEL
+              else rel_inv <= tol_inv and rel_d <= tol_d)
         log(f"K2 banded stack ({nb}, {b}, {b}) float64, seeded: plan {pl.variant} "
-            f"cs={pl.cs} shared={pl.smem} B; rel err Ainv {rel_inv:.3e}, d {rel_d:.3e}; "
+            f"cs={pl.cs} lanes={pl.lanes} grid={pl.grid} shared={pl.smem} B; rel err "
+            f"Ainv {rel_inv:.3e}, d {rel_d:.3e} ({'bit-equal' if b <= k2.PANEL else 'tol'}); "
             f"{ms:.4f} ms per launch, plain {plain_ms:.4f} ms, torch.linalg.inv_ex "
             f"{inv_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {ops} "
             f"flops), {ms / bound_ms:.1f}x -> {'ok' if ok else 'FAIL'}")
@@ -592,6 +737,9 @@ def _k2_compare(A, d_k, inv_k, d_p, inv_p):
         res_p = (A[reg] @ inv_p[reg] - eye).abs().amax((1, 2))
         worst_resid = float((res_k / res_p.clamp(min=eps)).max())
     close = bool((ratio[reg] <= 1.0).all() and (rel_d[reg] <= tol_d).all())
+    # up to b = 32 the warp variant runs the plain version's sweep: bit for bit
+    if b <= 32:
+        close = close and same_values(inv_k, inv_p) and same_values(d_k, d_p)
     inertia_ok = torch.equal(counts_k, counts_p)
     why = (f"disagrees with its plain version (inertia equal {inertia_ok}, signs "
            f"{signs_ok}, finite pattern {pattern_ok}, regular blocks within limits "
@@ -1241,6 +1389,48 @@ def _mitt_trace():
     return rows, cb
 
 
+class GraphedPlain:
+    """A plain PyTorch version (A -> tuple of tensors) replayed from one CUDA
+    graph per input shape: the same kernels in the same order, without the
+    Python launch cost of each.  The first input of each shape also runs
+    through the plain version's own launches, and ``equal`` records whether
+    the replay gave the same values (NaN in the same places)."""
+
+    def __init__(self, fn):
+        self.fn, self.graphs, self.equal = fn, {}, True
+
+    @property
+    def shapes(self):
+        return len(self.graphs)
+
+    def __call__(self, A):
+        import torch
+        key = (tuple(A.shape), A.dtype, A.device)
+        if key not in self.graphs:
+            static = A.clone()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                eager = self.fn(static)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = self.fn(static)
+            self.graphs[key] = (graph, static, out)
+            graph.replay()
+            self.equal &= all(same_values(x, y) for x, y in zip(out, eager))
+        graph, static, out = self.graphs[key]
+        static.copy_(A)
+        graph.replay()
+        return tuple(x.clone() for x in out)
+
+    def release(self):
+        import torch
+        self.graphs.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
 def mittelmann_path(dev, opts, card):
     """Mittelmann's distributed control on the card through the banded
     backend: N = 30 against the reference's values; N = 100 without
@@ -1248,8 +1438,10 @@ def mittelmann_path(dev, opts, card):
     N = 100 at the default options (restoration on: K2's device-memory
     variant at b = 1288), launch counts from 0, K2 on the inputs of that
     solve against its plain version (``MittK2Check``), its outcome logged and
-    held: it entered restoration, and the same status with K2's plain
-    version in the kernel's place.  Status 0 at N = 100 is printed as met or
+    held: it entered restoration, and with K2's plain version in the
+    kernel's place the same solve ends in the same status and its linear
+    solves break down in the same step (iteration 4).  Status 0 at N = 100
+    is printed as met or
     not; it is not met (status 10: the linear solves lose their accuracy
     from iteration 4, ROADMAP Queue 3).  Returns its numbers."""
     import torch
@@ -1391,21 +1583,44 @@ def mittelmann_path(dev, opts, card):
         + f"; status {int(res_mc.status)} after {int(res_mc.iter_count)} iterations, "
         f"resto_phase=False, max_iter=6)")
 
-    # the same solve with K2's plain version in the kernel's place
-    block_tridiag.block_ldlt_inv = k2.block_ldlt_inv_plain
+    # the same solve with K2's plain version in the kernel's place, replayed
+    # from a CUDA graph per input shape (its ~8,000 small launches per call
+    # cost ~150 ms from Python, ~270 s over the solve): the same status, and
+    # its linear solves break down in the same step (iteration 4), so the
+    # breakdown is the unpivoted sweep's, not the kernel's
+    events = []
+    plain = GraphedPlain(k2.block_ldlt_inv_plain)
+    block_tridiag.block_ldlt_inv = plain
+    step_mod.solve_any = solve_logged
     t0 = time.perf_counter()
     try:
-        res_p = ipopt_torch.solve(cnlp, device=dev, **bopts)
+        res_p = ipopt_torch.solve(cnlp, device=dev, intermediate_callback=count_iterations,
+                                  **bopts)
+        torch.cuda.synchronize()
     finally:
         block_tridiag.block_ldlt_inv = kernel
+        step_mod.solve_any = solve_any
+        n_graphs = plain.shapes
+        plain.release()
     plain_s = time.perf_counter() - t0
     got_p = (int(res_p.status), int(res_p.iter_count), int(res_p.restoration_count))
-    log(f"Mittelmann path: the same solve with K2's plain version on the card: "
+    by_it_p = ratios(events)
+    log(f"Mittelmann path: the same solve with K2's plain version on the card "
+        f"(replayed from {n_graphs} CUDA graphs, one per input shape, each equal "
+        f"to the plain version's own launches on its first input: {plain.equal}): "
         f"(status, iterations, restorations) {got_p}, objective {float(res_p.obj)!r}; "
-        f"{plain_s:.1f} s")
+        f"residual ratio after refinement by iteration "
+        + ", ".join(f"{k}: {v:.3e}" for k, v in sorted(by_it_p.items()) if k <= 6)
+        + f" (with K2: {by_it.get(4, float('nan')):.3e} at iteration 4); {plain_s:.1f} s")
+    if not plain.equal:
+        raise SystemExit("Mittelmann path: a CUDA graph of K2's plain version differs "
+                         "from its own launches")
     if got_p[0] != got[0]:
         raise SystemExit(f"Mittelmann path: status {got[0]} with K2, {got_p[0]} with "
                          f"its plain version")
+    if not (by_it.get(4, 0.0) > singular and by_it_p.get(4, 0.0) > singular):
+        raise SystemExit("Mittelmann path: the plain version's solves do not break down "
+                         "in the step of iteration 4 as the kernel's do")
     log(f"Mittelmann path: status 0 at N = {MITT_N} (the issue's gate): "
         f"{'met' if got[0] == 0 else 'NOT met'}")
     return dict(checked_wall_s=wall, checks_s=check.seconds, solve_s=solve_s,
@@ -1861,13 +2076,14 @@ def _card_vs_cpu(path, build, dev, kw, rtol=1e-9, status=0, ref=None):
     return rows[0]
 
 
-def check_k1_inputs(dev, inputs, shape, path, card):
+def check_k1_inputs(dev, inputs, shape, path, card, pivot_tol=0.0):
     """K1 on every input a solve gave it (captured by ``capture_k1_inputs``:
-    on the arrow path the scenario blocks and the Schur roots), bit-equal to
-    its plain version; timed on the inputs of ``shape``: device time per
-    launch (torch.profiler), the plain version's and torch.linalg.
-    ldl_factor_ex's (Bunch-Kaufman, another function: a yardstick) time per
-    call, and the bound."""
+    on the arrow path the scenario blocks and the Schur roots), held to its
+    plain version by ``k1_agrees`` (bit for bit but for the blocked
+    variant's inputs); timed on the inputs of ``shape``: device time per
+    launch (torch.profiler; CUDA events per call for the blocked variant),
+    the plain version's and torch.linalg.ldl_factor_ex's (Bunch-Kaufman,
+    another function: a yardstick) time per call, and the bound."""
     import torch
     from ipopt_torch.linalg import block_ldlt as bl
     from ipopt_torch.profile_main import device_us_per_launch
@@ -1875,41 +2091,55 @@ def check_k1_inputs(dev, inputs, shape, path, card):
     if not blocks:
         raise SystemExit(f"K1 on the {path} path: no {shape} input among "
                          f"{sorted({tuple(A.shape) for A in inputs})}")
-    max_abs_err = 0.0
+    max_abs_err = worst = 0.0
+    held = set()
     for A in inputs:
         L_k, d_k = bl.block_ldlt(A)
         L_p, d_p = bl.block_ldlt_plain(A)
-        if not (same_values(L_k, L_p) and same_values(d_k, d_p)):
+        ok, why, how, ratio = k1_agrees(A, L_k, d_k, L_p, d_p, pivot_tol)
+        if not ok:
             raise SystemExit(f"K1 on the {path} path: an input of {tuple(A.shape)} where "
-                             f"the kernel differs from its plain version")
+                             f"the kernel differs from its plain version: {why}")
+        held.add("bit-equal" if how == "bit-equal" else "the blocked variant's rule")
+        worst = max(worst, ratio)
         for x, y in ((L_k, L_p), (d_k, d_p)):
             fin = torch.isfinite(x) & torch.isfinite(y)
             max_abs_err = max(max_abs_err, float(torch.where(fin, x - y, 0.0).abs().max()))
-    us, n = device_us_per_launch(lambda: [bl.block_ldlt(A) for A in blocks], "ldlt_",
-                                 rounds=3)
+        del L_k, d_k, L_p, d_p
+    pl = bl.plan(shape[0], shape[1], blocks[0].dtype)
+    # the profiler divides by CUDA launches: the blocked variant makes several
+    us, n = ((float("nan"), 0) if pl.kernels > 1 else
+             device_us_per_launch(lambda: [bl.block_ldlt(A) for A in blocks], "ldlt_",
+                                  rounds=3))
     A0 = blocks[0]
     call_ms = time_cuda(lambda: bl.block_ldlt(A0), reps=20, warmup=2)
     # the profiler's device time per launch where it traced the kernel, else
     # CUDA events around back-to-back wrapper calls (one launch each)
     source = "torch.profiler" if n else "CUDA events"
     ms = us * 1e-3 if n else call_ms
-    plain_ms = time_cuda(lambda: bl.block_ldlt_plain(A0), reps=5, warmup=1)
+    # one call where b is wide: the plain loop's b steps are launch-bound
+    wide = shape[-1] > 1000
+    plain_ms = time_cuda(lambda: bl.block_ldlt_plain(A0), reps=1 if wide else 5,
+                         warmup=0 if wide else 1)
     # seconds per call at these shapes: one timed call (its handles exist
     # since check_k1)
     ldl_ms = time_cuda(lambda: torch.linalg.ldl_factor_ex(A0), reps=1, warmup=0)
     bound_ms, bound_by, nbytes, ops = k1_bound(shape[0], shape[1], A0.dtype)
-    pl = bl.plan(shape[0], shape[1], A0.dtype)
     log(f"K1 on the {path} path: {len(inputs)} inputs ({len(blocks)} of {shape}), "
-        f"each bit-equal to the plain version; plan {pl.variant}; "
-        f"{us:.2f} us device time per launch on the {shape} inputs (torch.profiler, {n} "
-        f"launches), {call_ms:.4f} ms per wrapper call (CUDA events); K1's ms "
+        f"each held to the plain version ({', '.join(sorted(held))}; worst backward "
+        f"error / limit {worst:.3e}); plan {pl.variant}, {pl.kernels} CUDA launches "
+        f"per call; "
+        + (f"{us:.2f} us device time per launch on the {shape} inputs (torch.profiler, "
+           f"{n} launches), " if n else "")
+        + f"{call_ms:.4f} ms per wrapper call (CUDA events); K1's ms "
         f"{ms:.4f} ({source}); plain version {plain_ms:.4f} ms; "
         f"torch.linalg.ldl_factor_ex {ldl_ms:.4f} ms; bound {bound_ms:.6f} ms "
         f"({bound_by}: {nbytes} B, {ops} ops), {ms / bound_ms:.1f}x; card {card}")
     return dict(shape=list(shape), inputs=len(inputs), variant=pl.variant,
-                ms=ms, ms_source=source, call_ms=call_ms, plain_ms=plain_ms,
-                library_ms=ldl_ms, bound_ms=bound_ms, bound_by=bound_by,
-                max_abs_err=max_abs_err)
+                cuda_launches_per_call=pl.kernels, ms=ms, ms_source=source,
+                call_ms=call_ms, plain_ms=plain_ms, library_ms=ldl_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_abs_err,
+                worst_backward_ratio=worst)
 
 
 def _timed_solves(build_or_nlp, dev, kw):
@@ -2010,12 +2240,27 @@ def arrow_restoration_path(dev, card):
     return out
 
 
+def _lbfgs_vs_reference(path, res, name):
+    """F4's full-size L-BFGS solve against the reference's on the CPU
+    (tests/torch_cases.py ``name``, tools/torch_reference_values.py): both
+    end near objective 0, another local solution than the exact Hessian's
+    6.23.  Held: the status, and the objective to 1e-12 absolute; the
+    iterations are printed beside the reference's."""
+    st, it, obj = _recorded(name)
+    log(f"{path}: (status, iterations, objective) ({int(res.status)}, "
+        f"{int(res.iter_count)}, {float(res.obj)!r}); the reference's ({st}, {it}, "
+        f"{obj!r})")
+    if int(res.status) != st or abs(float(res.obj) - obj) > 1e-12:
+        raise SystemExit(f"{path}: differs from the reference's {name}")
+
+
 def lbfgs_paths(dev, card, nlp_b, family, exact_ms):
     """F4: hessian_approximation="limited-memory" on every backend, each
     cold then warm with the counts from 0 around the warm solve, status 0:
-    chained (luksan_vlcek1(4096, 32); n = 256 card = CPU), arrow (F1's
-    problem; S = 256 card = CPU), banded (luksan_vlcek1_flat, n = 2000 card
-    = CPU, n = 1e5 timed) and dense (the HS071 family, B = 512: every lane
+    chained (luksan_vlcek1(4096, 32), against the reference's recorded
+    solve; n = 256 card = CPU), arrow (F1's problem; S = 256 card = CPU),
+    banded (luksan_vlcek1_flat, n = 2000 card = CPU, n = 1e5 timed and
+    against the reference's recorded solve) and dense (the HS071 family, B = 512: every lane
     at the CPU's iterations, except that a lane of FAMILY_LBFGS_SENSITIVE
     may end one apart with the CPU's objective to 1e-9; those lanes within
     one iteration of the reference's and lane 0 equal to it).  ``exact_ms``
@@ -2039,6 +2284,7 @@ def lbfgs_paths(dev, card, nlp_b, family, exact_ms):
         f"factorizations), K1 launches {k1_n}; card {card}")
     if got[0] != 0 or k2_n != LV1_K2_PER_FACTORIZATION * bcr or k1_n:
         raise SystemExit(f"F4 chained: status {got[0]}, K2 {k2_n} for {bcr}, K1 {k1_n}")
+    _lbfgs_vs_reference("F4 L-BFGS chained", res, "lv1_4096_lbfgs")
     _card_vs_cpu(f"F4 L-BFGS chained, luksan_vlcek1(256, {LV1_V})",
                  lambda: modellib.luksan_vlcek1(256, LV1_V), dev, kw)
     out["chained_lv1_4096_32"] = dict(status=got[0], iterations=got[1], factorizations=got[2],
@@ -2084,6 +2330,7 @@ def lbfgs_paths(dev, card, nlp_b, family, exact_ms):
         f"launches {k1_n}; card {card}")
     if got[0] != 0 or k2_n != LVF_K2_PER_FACTORIZATION * bcr or k1_n:
         raise SystemExit(f"F4 banded: status {got[0]}, K2 {k2_n} for {bcr}, K1 {k1_n}")
+    _lbfgs_vs_reference("F4 L-BFGS banded", res, "lv1flat_1e5_lbfgs_banded")
     out["banded_lv1_flat_1e5"] = dict(status=got[0], iterations=got[1], factorizations=got[2],
                                       setup_s=setup_s, wall_s=wall, cold_s=cold_s,
                                       peak_gib=peak,
@@ -2206,21 +2453,48 @@ def _torch_cases():
     return torch_cases
 
 
-def check_k1_levels(dev, inputs, levels, path, card):
+def blocked_breakdown(A, rounds=2):
+    """Device ms per call of K1's blocked variant on A, by kernel (init,
+    panel, update), from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from ipopt_torch.linalg import block_ldlt as bl
+    from ipopt_torch.profile_main import _device_us
+    import torch
+    bl.block_ldlt(A)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            bl.block_ldlt(A)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for name in ("init", "panel", "update"):
+            if f"ldlt_blocked_{name}" in e.key:
+                out[name] = out.get(name, 0.0) + _device_us(e) / rounds * 1e-3
+    return out
+
+
+def check_k1_levels(dev, inputs, levels, path, card, pivot_tol=0.0):
     """K1 on every input of a multifrontal solve (the eliminated blocks of
-    each level of each factorization), bit-equal to its plain version; then
-    per level, on the first factorization's inputs: K1's time per launch
-    (CUDA events), the plain version's, torch.linalg.ldl_factor_ex's
-    (Bunch-Kaufman: another function, a yardstick) and the bound."""
+    each level of each factorization), held to its plain version by
+    ``k1_agrees`` at the solve's ``pivot_tol`` (bit for bit on the warp and
+    CTA levels, by k1_rule on the blocked ones); then per level, on the
+    first factorization's inputs: K1's time per call (CUDA events), the
+    plain version's, torch.linalg.ldl_factor_ex's (Bunch-Kaufman: another
+    function, a yardstick) and the bound."""
     import torch
     from ipopt_torch.linalg import block_ldlt as bl
-    max_abs_err = 0.0
+    max_abs_err = worst = 0.0
+    n_blocked = 0
     for A in inputs:
         L_k, d_k = bl.block_ldlt(A)
         L_p, d_p = bl.block_ldlt_plain(A)
-        if not (same_values(L_k, L_p) and same_values(d_k, d_p)):
-            raise SystemExit(f"K1 on the {path} path: an input of {tuple(A.shape)} where "
-                             f"the kernel differs from its plain version")
+        ok, why, how, ratio = k1_agrees(A, L_k, d_k, L_p, d_p, pivot_tol)
+        if not ok:
+            raise SystemExit(f"K1 on the {path} path: an input of {tuple(A.shape)} "
+                             f"where the kernel differs from its plain version: {why}")
+        n_blocked += how == "rule"
+        worst = max(worst, ratio)
         for x, y in ((L_k, L_p), (d_k, d_p)):
             fin = torch.isfinite(x) & torch.isfinite(y)
             max_abs_err = max(max_abs_err, float(torch.where(fin, x - y, 0.0).abs().max()))
@@ -2234,18 +2508,30 @@ def check_k1_levels(dev, inputs, levels, path, card):
         ldl_ms = time_cuda(lambda: torch.linalg.ldl_factor_ex(A), reps=1, warmup=1)
         bound_ms, bound_by, _, _ = k1_bound(nb, b, A.dtype)
         pl = bl.plan(nb, b, A.dtype)
-        rows.append(dict(shape=[nb, b, b], variant=pl.variant, ms=ms, plain_ms=plain_ms,
-                         library_ms=ldl_ms, bound_ms=bound_ms, bound_by=bound_by))
-        log(f"K1 on the {path} path, level ({nb}, {b}, {b}) plan {pl.variant}: "
-            f"{ms:.4f} ms per launch (CUDA events), bound {bound_ms:.6f} ms "
-            f"({bound_by}), {ms / bound_ms:.1f}x; plain {plain_ms:.4f} ms; "
-            f"torch.linalg.ldl_factor_ex {ldl_ms:.4f} ms")
+        row = dict(shape=[nb, b, b], variant=pl.variant, cuda_launches=pl.kernels,
+                   ms=ms, plain_ms=plain_ms, library_ms=ldl_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
+        split = ""
+        if pl.variant == "blocked":
+            # the blocked variant's device time per call by kernel
+            with timed("G1 blocked variant's device time by kernel"):
+                row["device_ms_by_kernel"] = blocked_breakdown(A)
+            split = "; device ms per call by kernel " + ", ".join(
+                f"{k} {v:.4f}" for k, v in row["device_ms_by_kernel"].items())
+        rows.append(row)
+        log(f"K1 on the {path} path, level ({nb}, {b}, {b}) plan {pl.variant} "
+            f"({pl.kernels} CUDA launches per call): {ms:.4f} ms per call (CUDA "
+            f"events), bound {bound_ms:.6f} ms ({bound_by}), {ms / bound_ms:.1f}x; plain "
+            f"{plain_ms:.4f} ms; torch.linalg.ldl_factor_ex {ldl_ms:.4f} ms{split}")
     per_fac = sum(r["ms"] for r in rows)
-    log(f"K1 on the {path} path: {len(inputs)} inputs, each bit-equal to the plain "
-        f"version; {per_fac:.3f} ms per factorization over its {levels} levels "
-        f"(bound {sum(r['bound_ms'] for r in rows):.6f} ms); card {card}")
+    log(f"K1 on the {path} path: {len(inputs)} inputs held to the plain version "
+        f"({len(inputs) - n_blocked} bit-equal, {n_blocked} float64 blocked by its rule, worst "
+        f"backward error / limit {worst:.3e}); {per_fac:.3f} ms per factorization over "
+        f"its {levels} levels (bound {sum(r['bound_ms'] for r in rows):.6f} ms); "
+        f"{sum(r['cuda_launches'] for r in rows)} CUDA launches per factorization; "
+        f"card {card}")
     return dict(levels=rows, ms_per_factorization=per_fac, max_abs_err=max_abs_err,
-                inputs=len(inputs))
+                inputs=len(inputs), blocked_inputs=n_blocked, worst_backward_ratio=worst)
 
 
 def multifrontal_path(dev, opts, card):
@@ -2348,9 +2634,9 @@ def multifrontal_path(dev, opts, card):
 
 
 def k1_wide_stacks(dev, card):
-    """G2: K1 on seeded stacks at the widest fronts of N = 32, bit-equal to
-    its plain version and timed beside its bound, the plain version and
-    torch.linalg.ldl_factor_ex."""
+    """G2: K1 on seeded stacks at the widest fronts of N = 32 (the blocked
+    variant), held to its plain version by k1_rule and timed beside its
+    bound, the plain version and torch.linalg.ldl_factor_ex."""
     import torch
     from ipopt_torch.linalg import block_ldlt as bl
     rng = np.random.default_rng(32)
@@ -2359,7 +2645,7 @@ def k1_wide_stacks(dev, card):
         A = k1_blocks(rng, nb, b, torch.float64).to(dev)
         L_k, d_k = bl.block_ldlt(A)
         L_p, d_p = bl.block_ldlt_plain(A)
-        ok = same_values(L_k, L_p) and same_values(d_k, d_p)
+        ok, why, _, ratio = k1_agrees(A, L_k, d_k, L_p, d_p)
         del L_k, d_k, L_p, d_p
         # timed without the inf block, whose CTA takes the library division
         At = A[:-1] if nb > 1 else A
@@ -2369,14 +2655,16 @@ def k1_wide_stacks(dev, card):
         ldl_ms = time_cuda(lambda: torch.linalg.ldl_factor_ex(At), reps=1, warmup=0)
         bound_ms, bound_by, _, _ = k1_bound(nb, b, torch.float64)
         pl = bl.plan(nb, b, torch.float64)
-        log(f"G2 K1 seeded ({nb}, {b}, {b}) float64 plan {pl.variant}: bit-equal to "
-            f"the plain version {ok}; {ms:.3f} ms per launch (CUDA events), bound "
+        log(f"G2 K1 seeded ({nb}, {b}, {b}) float64 plan {pl.variant} ({pl.kernels} "
+            f"CUDA launches per call): against the plain version {why}; {ms:.3f} ms per "
+            f"call (CUDA events), bound "
             f"{bound_ms:.6f} ms ({bound_by}), {ms / bound_ms:.0f}x; plain "
             f"{plain_ms:.3f} ms; torch.linalg.ldl_factor_ex {ldl_ms:.3f} ms; card {card}")
         if not ok:
-            raise SystemExit(f"G2: K1 differs from its plain version at ({nb}, {b})")
-        rows.append(dict(shape=[nb, b, b], variant=pl.variant, ms=ms, plain_ms=plain_ms,
-                         library_ms=ldl_ms, bound_ms=bound_ms, bound_by=bound_by))
+            raise SystemExit(f"G2: K1 differs from its plain version at ({nb}, {b}): {why}")
+        rows.append(dict(shape=[nb, b, b], variant=pl.variant, cuda_launches=pl.kernels,
+                         ms=ms, plain_ms=plain_ms, library_ms=ldl_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, backward_ratio=ratio))
     return rows
 
 
@@ -2843,8 +3131,8 @@ def h3_phase(dev, card):
     198, 2 panels) card against CPU and the reference; luksan_vlcek1_dense(
     1000) (KKT 1998, 16 panels of 128) at status 0, K1 16 times per
     factorization at (1, 128, 128), bit-equal on every input, and its wall
-    beside the same solve under dense-ldlt (K1's device-memory variant at
-    b = 1998)."""
+    beside the same solve under dense-ldlt (K1's blocked variant at b =
+    1998, held by k1_rule on every input of that solve)."""
     import torch
     import ipopt_torch
     from ipopt_torch import modellib
@@ -2887,10 +3175,18 @@ def h3_phase(dev, card):
         raise SystemExit(f"H3: {blocked['k1_launches']} K1 launches, {len(inputs)} "
                          f"inputs in the same solve")
     k1 = check_k1_inputs(dev, inputs, (1, 128, 128), "H3 blocked panels", card)
+    del inputs
+    # dense-ldlt factors the whole KKT: K1's blocked variant at b = 1998
+    kkt = 2 * BLOCKED_N - 2
+    kw = dict(print_level=0, linear_solver="dense-ldlt")
+    inputs = capture_k1_inputs(lambda: ipopt_torch.solve(nlp, device=dev, **kw))
+    with timed("H3 K1 on dense-ldlt's inputs (1, 1998)"):
+        k1_dense = check_k1_inputs(dev, inputs, (1, kkt, kkt), "H3 dense-ldlt", card)
+    del inputs
     log(f"H3: blocked {blocked['wall_s']:.3f} s against dense-ldlt "
         f"{out['dense-ldlt']['wall_s']:.3f} s for the same solve; {per} K1 panel "
         f"launches per factorization; card {card}")
-    return dict(out, k1=k1, panels_per_factorization=per)
+    return dict(out, k1=k1, k1_dense_ldlt=k1_dense, panels_per_factorization=per)
 
 
 def _parametric_hs071(p):
@@ -3129,6 +3425,117 @@ def _k2_level_times(first, card, path):
     return rows
 
 
+def gj_pivots_extended(A):
+    """The unpivoted Gauss-Jordan pivots of one block (numpy (b, b)) in
+    extended precision (numpy longdouble), with the same guard."""
+    X = A.astype(np.longdouble)
+    tiny = np.finfo(np.float64).tiny
+    d = np.empty(X.shape[0], dtype=np.longdouble)
+    for k in range(X.shape[0]):
+        p = X[k, k]
+        d[k] = p
+        sp = p if abs(p) > tiny else (np.longdouble(tiny) if p >= 0 else -np.longdouble(tiny))
+        col, row = X[:, k].copy(), X[k, :].copy()
+        X = X - np.outer(col, row) / sp
+        X[k, :] = -row / sp
+        X[:, k] = col / sp
+        X[k, k] = 1 / sp
+    return d
+
+
+def i1_pivot_diagnosis(inputs, per, card):
+    """Why K2's pivots on I1's sharded chain miss the chained path's rule (d
+    to PATH_TOL_D relative): on every input of one sharded solve, by its
+    launch within the factorization (the interiors' levels, then the reduced
+    system's), the blocks without a guarded pivot whose d differs from the
+    plain version's by more than PATH_TOL_D; and for each, how far the
+    plain version itself moves between equally valid orders and inputs: the
+    sweep of A^T (MittK2Check's second order), the same sweep on the CPU
+    (another summation order of its panel products), and the sweep of A
+    with every entry scaled by 1 +- eps (a seeded symmetric relative
+    perturbation of one ulp: the block's conditioning); and how far the
+    kernel and the plain version each lie from the same sweep in extended
+    precision.  Where the plain version moves d by as much, or is itself as
+    far from the extended sweep, the cause is the block, not the kernel.
+    Printed, not held: I1 holds K2 by MittK2Check's rule."""
+    import torch
+    from ipopt_torch.linalg import block_ldlt_inv as k2
+    tiny = torch.finfo(torch.float64).tiny
+    eps = torch.finfo(torch.float64).eps
+    rng = np.random.default_rng(11)
+    by_level = {}
+    rows = []
+    for n, A in enumerate(inputs):
+        lev = n % per
+        d_k, _ = k2.block_ldlt_inv(A)
+        d_p, _ = k2.block_ldlt_inv_plain(A)
+        guarded = (~(d_p.abs() > tiny)).any(-1)
+        rel = ((d_k - d_p).abs() / d_p.abs()).nan_to_num(0.0, 0.0, 0.0).amax(-1)
+        miss = (rel > PATH_TOL_D) & ~guarded & torch.isfinite(A).all(-1).all(-1)
+        lv = by_level.setdefault(lev, dict(shape=list(A.shape), inputs=0, blocks=0,
+                                           guarded=0, missing=0, worst_rel_d=0.0))
+        lv["inputs"] += 1
+        lv["blocks"] += A.shape[0]
+        lv["guarded"] += int(guarded.sum())
+        lv["missing"] += int(miss.sum())
+        lv["worst_rel_d"] = max(lv["worst_rel_d"], float(rel[~guarded].max())
+                                if bool((~guarded).any()) else 0.0)
+        for j in torch.nonzero(miss).flatten().tolist():
+            Aj = A[j:j + 1]
+            ref = d_p[j:j + 1]
+
+            def moved(d):
+                return float(((d - ref).abs() / ref.abs()).nan_to_num(0.0, 0.0, 0.0).max())
+            d_t, _ = k2.block_ldlt_inv_plain(Aj.transpose(1, 2).contiguous())
+            d_c, _ = k2.block_ldlt_inv_plain(Aj.cpu())
+            E = torch.as_tensor(rng.choice([-1.0, 1.0], size=Aj.shape), device=Aj.device)
+            E = torch.triu(E) + torch.triu(E, 1).transpose(1, 2)
+            d_e, _ = k2.block_ldlt_inv_plain(Aj * (1 + eps * E))
+            # both against the sweep in extended precision (numpy longdouble)
+            d_x = gj_pivots_extended(Aj[0].cpu().numpy())
+
+            def off(d):
+                d = d[0].cpu().numpy().astype(np.longdouble)
+                return float(np.max(np.abs(d - d_x) / np.abs(d_x)))
+            rows.append(dict(launch=lev, input=n, block=j, rel_d_kernel=float(rel[j]),
+                             rel_d_transposed=moved(d_t), rel_d_cpu=moved(d_c.to(ref.device)),
+                             rel_d_one_ulp=moved(d_e),
+                             kernel_from_extended=off(d_k[j:j + 1]),
+                             plain_from_extended=off(ref),
+                             max_abs_pivot=float(ref.abs().max()),
+                             min_abs_pivot=float(ref.abs().min())))
+    for lev, lv in sorted(by_level.items()):
+        log(f"I1 K2 pivots, launch {lev + 1} of {per} per factorization {tuple(lv['shape'])}: "
+            f"{lv['inputs']} inputs, {lv['blocks']} blocks ({lv['guarded']} with a guarded "
+            f"pivot); {lv['missing']} blocks without one whose d misses {PATH_TOL_D:g} "
+            f"relative; worst rel d {lv['worst_rel_d']:.3e}")
+    for r in rows[:20]:
+        log(f"I1 K2 pivots: launch {r['launch'] + 1}, input {r['input']}, block "
+            f"{r['block']}: kernel rel d {r['rel_d_kernel']:.3e}; the plain version "
+            f"itself on A^T {r['rel_d_transposed']:.3e}, on the CPU {r['rel_d_cpu']:.3e}, "
+            f"on A moved by one ulp {r['rel_d_one_ulp']:.3e}; against the sweep in "
+            f"extended precision: kernel {r['kernel_from_extended']:.3e}, plain "
+            f"{r['plain_from_extended']:.3e}; |d| from {r['min_abs_pivot']:.3e} to "
+            f"{r['max_abs_pivot']:.3e}")
+    spread = [max(r["rel_d_transposed"], r["rel_d_cpu"], r["rel_d_one_ulp"],
+                  r["plain_from_extended"]) for r in rows]
+    # "as much": the plain version's own spread, or its own error, within 10x
+    # of the kernel's difference
+    conditioning = sum(sp >= r["rel_d_kernel"] / 10 for sp, r in zip(spread, rows))
+    verdict = ("no block misses the rule" if not rows else
+               f"{conditioning} of {len(rows)} missing blocks move by at least a tenth as "
+               f"much under the plain version's own orders or a one-ulp perturbation, "
+               f"or the plain version is itself that far from the extended-precision "
+               f"sweep")
+    log(f"I1 K2 pivots: {len(rows)} blocks miss d to {PATH_TOL_D:g}; worst kernel rel d "
+        f"{max((r['rel_d_kernel'] for r in rows), default=0.0):.3e}, worst plain spread "
+        f"{max(spread, default=0.0):.3e}; {verdict}; card {card}")
+    return dict(levels={str(k + 1): v for k, v in sorted(by_level.items())},
+                missing_blocks=len(rows), conditioning_blocks=conditioning,
+                worst_rel_d_kernel=max((r["rel_d_kernel"] for r in rows), default=0.0),
+                worst_plain_spread=max(spread, default=0.0), blocks=rows[:20])
+
+
 def i1_phase(dev, opts, card):
     """I1: luksan_vlcek1(4096, 32) with chain_shard=True over CHAIN_SHARDS
     shards on the card (lanes of one batched BCR): the reference's (0, 7,
@@ -3183,13 +3590,15 @@ def i1_phase(dev, opts, card):
     for A in inputs:
         check(A, *k2.block_ldlt_inv(A))
     rows = check.report("I1 chain_shard")
+    with timed("I1 pivot diagnosis"):
+        diagnosis = i1_pivot_diagnosis(inputs, per, card)
     levels = _k2_level_times(inputs[:per], card, "I1 chain_shard")
     del inputs
     return dict(shards=CHAIN_SHARDS, blocks_per_shard=k, status=got[0],
                 iterations=got[1], factorizations=got[2], obj=obj, wall_s=wall,
                 ms_per_iteration=ms_it, unsharded_ms_per_iteration=base_ms_it,
                 peak_gib=peak, k2_launches=k2_n, k2_per_factorization=per,
-                k2_check=rows, k2_levels=levels)
+                k2_check=rows, k2_pivot_diagnosis=diagnosis, k2_levels=levels)
 
 
 def i2_phase(dev, opts, card, nlp_b, one):
@@ -3585,6 +3994,8 @@ def main():
     paths.update(i1_chain_shard_lv1_4096_32_8_shards=i["i1"]["k2_launches"],
                  i4_ampl_lv1_flat_nl=i["i4"]["k2_launches"])
 
+    log("seconds of PR-11's checks and timings: " + json.dumps(
+        {k: round(v, 1) for k, v in CHECK_SECONDS.items()}))
     # 10. kernels line, 11. result line
     phase("kernels line")
     k2_entry = dict(k2_banded)
@@ -3616,6 +4027,9 @@ def main():
                                h5=h["h5"])
     k1_entry["slice_i"] = dict(i2_device_groups=i["i2"], i3_scenario_groups=i["i3"],
                                i5_c_library=i["i5"])
+    # the variants each wrapper launched over the whole script
+    k1_entry["variants_launched"] = dict(bl.block_ldlt.by_variant)
+    k2_entry["variants_launched"] = dict(k2mod.block_ldlt_inv.by_variant)
     print(json.dumps({"kernels": [{
         "name": "block_ldlt", "route": "cuda",
         "source": "ipopt_torch/csrc/block_ldlt.cu",

@@ -31,7 +31,8 @@
 // the third on a CTA per block would leave most of the 132 SMs idle, and a
 // sweep of 156 dependent scalar steps on one SM costs ~1.3 ms whatever ne is.
 //
-// The design:
+// The design (b > 32; for b <= 32 the warp variant below runs the scalar
+// sweep in registers, several blocks per warp):
 // - One thread-block cluster of cs CTAs per block.  CTA c keeps a strip of
 //   whole 32-row panels of the block in its shared memory for the whole
 //   factorization (the panels split as evenly as they go, the larger strips
@@ -90,6 +91,7 @@
 #include <cuda_pipeline.h>
 #include <cfloat>
 
+#include "dmma.cuh"
 #include "exact_div.cuh"
 
 namespace cg = cooperative_groups;
@@ -116,16 +118,6 @@ __device__ __forceinline__ int owner_of(int panel, int n_panels, int cs) {
   const int base = n_panels / cs, extra = n_panels % cs;
   const int big = extra * (base + 1);
   return panel < big ? panel / (base + 1) : extra + (panel - big) / base;
-}
-
-// d(2) = a(8x4, row) b(4x8, col) + c(2): lane l holds a[l/4][l%4],
-// b[l%4][l/4] and c, d[l/4][2(l%4) + {0, 1}].
-__device__ __forceinline__ void dmma(double& d0, double& d1, double a, double b) {
-  asm volatile(
-      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
-      "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
-      : "+d"(d0), "+d"(d1)
-      : "d"(a), "d"(b));
 }
 
 // One sweep step for element (i, j) of the panel, from the previous step's
@@ -458,6 +450,159 @@ gj_inv_cluster_kernel(const T* __restrict__ A, T* __restrict__ Ainv,
     for (int j = lane; j < b; j += 32) Ob[(long long)(row0 + i) * b + j] = S[i * ld + j];
 }
 
+// ---------------------------------------------------------------------------
+// The warp variant, for b <= 32: the scalar sweep in registers.  P =
+// next_pow2(b) lanes per block, lane r holding row r's entries x[j]
+// (j < P, zero past b), so 32 / P blocks per warp.  Step k takes the pivot
+// row from lane k of the block's segment (__shfl_sync of width P, one per
+// entry, every lane of the warp taking part), and each lane updates its own
+// row with the same expressions as sweep_panel: quotients certified from an
+// estimate of 1 / sp (1 / sp itself among them) without a branch, the
+// exact reciprocal of a power-of-two pivot (step_guard), and the library
+// division for a pivot out of range or a quotient the certificate cannot
+// vouch for.  So it equals the plain version bit for bit, NaN included.
+// The warp's contiguous blocks are loaded and stored coalesced through
+// shared memory; warps spread over the SMs before a CTA takes more than one
+// (block_ldlt_inv.py::plan).  What bounds it: the instructions of its
+// certified quotients (b^3 per block), not its bytes.
+// ---------------------------------------------------------------------------
+constexpr int kMaxWarpsPerCta = 4;
+
+// step_exact out of line: rare, and one copy keeps the unrolled step small.
+template <typename T>
+__device__ __noinline__ T step_slow(int i, int j, int k, T x, T c, T r, T sp) {
+  return step_exact(i, j, k, x, c, r, sp);
+}
+
+// One sweep step's entry (the expressions of step_fast) with every quotient,
+// 1 / sp included, certified from the estimate y of 1 / sp.
+template <typename T>
+__device__ __forceinline__ T step_cert(bool row, bool col, T x, T c, T r, T sp, T y,
+                                       bool& ok) {
+  const T a = row ? (col ? T(1) : -r) : (col ? c : mul_rn(c, r));
+  const T q = div_by(a, sp, y, ok);
+  return (row | col) ? q : sub_rn(x, q);
+}
+
+template <typename T, int P>
+__global__ void __launch_bounds__(32 * kMaxWarpsPerCta)
+gj_inv_warp_kernel(const T* __restrict__ A, T* __restrict__ Ainv, T* __restrict__ D,
+                   int nb, int b) {
+  constexpr int G = 32 / P;  // blocks per warp
+  constexpr unsigned kFull = 0xffffffffu;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int bb = b * b;
+  T* S = reinterpret_cast<T*>(smem_raw) + w * (G * bb);
+  const long long first = ((long long)blockIdx.x * (blockDim.x >> 5) + w) * G;
+  if (first >= nb) return;  // uniform over the warp
+  const int nblk = (int)(nb - first < G ? nb - first : G);
+  const int count = nblk * bb;
+  const T* Aw = A + first * bb;
+  for (int e = lane; e < count; e += 32) S[e] = Aw[e];
+  __syncwarp();
+
+  const int seg = lane / P, r = lane % P;
+  const bool row = seg < nblk && r < b;
+  T* Sr = S + (seg * b + r) * b;
+  T x[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) x[j] = (row && j < b) ? Sr[j] : T(0);
+  T dr = T(0);
+  // rolled over k (one copy of the step's code), unrolled over the entries
+  for (int k = 0; k < b; ++k) {
+    T c = T(0);  // x[k], by compile-time indices
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      if (j == k) c = x[j];
+    const T p = __shfl_sync(kFull, c, k, P);
+    if (r == k) dr = p;
+    const T sp = safe_pivot(p);
+    const T asp = fabs(sp);
+    // uniform over a block's lanes: 0 certified quotients from an estimate
+    // of 1 / sp, 1 a power of two (exact reciprocal), 2 the library division
+    const int mode = ((asp >= Exact<T>::plo) & (asp <= Exact<T>::phi)) ? 0
+                     : (Pow2<T>::is(sp) ? 1 : 2);
+    const T y = mode == 1 ? Pow2<T>::recip(sp) : recip_estimate(sp);
+    // every quotient without a branch (the guard's exact reciprocal only in
+    // a warp that has such a pivot); a lane that was not vouched for
+    // recomputes its row with the library division (the shuffles again, with
+    // the whole warp).  Entries past b are never read.
+    T v[P];
+    bool ok = true;
+    if (__any_sync(kFull, mode == 1)) {
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const T rj = __shfl_sync(kFull, x[j], k, P);
+        v[j] = mode == 1 ? step_guard(r, j, k, x[j], c, rj, y)
+                         : step_cert(r == k, j == k, x[j], c, rj, sp, y, ok);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const T rj = __shfl_sync(kFull, x[j], k, P);
+        v[j] = step_cert(r == k, j == k, x[j], c, rj, sp, y, ok);
+      }
+    }
+    const bool slow = mode == 2 || (mode == 0 && !ok);
+    if (__any_sync(kFull, slow)) {
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const T rj = __shfl_sync(kFull, x[j], k, P);
+        if (slow && j < b) v[j] = step_slow(r, j, k, x[j], c, rj, sp);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < P; ++j) x[j] = v[j];
+  }
+
+  __syncwarp();
+  if (row) {
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      if (j < b) Sr[j] = x[j];
+    D[(first + seg) * b + r] = dr;
+  }
+  __syncwarp();
+  T* Ow = Ainv + first * bb;
+  for (int e = lane; e < count; e += 32) Ow[e] = S[e];
+}
+
+template <typename T, int P>
+cudaError_t launch_warp(const T* a, T* ainv, T* d, int nb, int b, int grid, int threads,
+                        int smem, cudaStream_t s) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gj_inv_warp_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  gj_inv_warp_kernel<T, P><<<grid, threads, smem, s>>>(a, ainv, d, nb, b);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_warp_variant(const void* A, void* Ainv, void* D, int nb, int b, int rows,
+                        int grid, int threads, int smem, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (nb <= 0 || b <= 0) return 0;
+  if (b > rows || threads % 32 != 0 || threads > 32 * kMaxWarpsPerCta)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const T* a = static_cast<const T*>(A);
+  T* o = static_cast<T*>(Ainv);
+  T* d = static_cast<T*>(D);
+  switch (rows) {
+    case 1: return (int)launch_warp<T, 1>(a, o, d, nb, b, grid, threads, smem, s);
+    case 2: return (int)launch_warp<T, 2>(a, o, d, nb, b, grid, threads, smem, s);
+    case 4: return (int)launch_warp<T, 4>(a, o, d, nb, b, grid, threads, smem, s);
+    case 8: return (int)launch_warp<T, 8>(a, o, d, nb, b, grid, threads, smem, s);
+    case 16: return (int)launch_warp<T, 16>(a, o, d, nb, b, grid, threads, smem, s);
+    case 32: return (int)launch_warp<T, 32>(a, o, d, nb, b, grid, threads, smem, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 int launch(const void* A, void* Ainv, void* D, int nb, int b, int cs, int smem,
            int device, void* stream) {
@@ -704,6 +849,20 @@ int block_ldlt_inv_f32(const void* A, void* Ainv, void* D, int nb, int b, int cs
 int block_ldlt_inv_f64(const void* A, void* Ainv, void* D, int nb, int b, int cs,
                        int smem, int device, void* stream) {
   return launch<double>(A, Ainv, D, nb, b, cs, smem, device, stream);
+}
+
+// The warp variant (b <= 32): rows = next_pow2(b), grid, threads and smem
+// are block_ldlt_inv.py::plan's.
+int block_ldlt_inv_warp_f32(const void* A, void* Ainv, void* D, int nb, int b, int rows,
+                            int grid, int threads, int smem, int device, void* stream) {
+  return launch_warp_variant<float>(A, Ainv, D, nb, b, rows, grid, threads, smem, device,
+                                    stream);
+}
+
+int block_ldlt_inv_warp_f64(const void* A, void* Ainv, void* D, int nb, int b, int rows,
+                            int grid, int threads, int smem, int device, void* stream) {
+  return launch_warp_variant<double>(A, Ainv, D, nb, b, rows, grid, threads, smem, device,
+                                     stream);
 }
 
 // The device-memory variant: R is a scratch buffer of (nb, 32, b) elements.

@@ -1,10 +1,10 @@
 // Exact scalar arithmetic shared by the hand-written kernels K1
 // (block_ldlt.cu) and K2 (block_ldlt_inv.cu): the reference's tiny-pivot
 // guard, round-to-nearest operations that are never contracted into an FMA,
-// and quotients a / p rounded to nearest from one reciprocal of p: a
-// certified Markstein correction for p in Exact's range (div_by), and an
-// exact reciprocal when p is a power of two (Pow2), as the guard's +-tiny
-// pivots are.  What either cannot vouch for takes the library division.
+// and quotients a / p rounded to nearest from one reciprocal of p (an
+// estimate, recip_estimate, is enough): a certified Markstein correction for
+// p in Exact's range (div_by), and an exact reciprocal when p is a power of
+// two (Pow2), as the guard's +-tiny pivots are.  What either cannot vouch for takes the library division.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -64,7 +64,8 @@ template <> struct Exact<float> {
   }
 };
 
-// a / b rounded to nearest, from y = RN(1 / b), without a division:
+// a / b rounded to nearest, from y = RN(1 / b) or an estimate of it within
+// about an ulp (recip_estimate), without a division:
 // q = RN(a y), then q' = RN(q + (a - b q) y) (Markstein's correction; each
 // residual a - b q is exact in one FMA).  q' is kept only when it is
 // certified: a / b - q' = r' / b with r' = a - b q' exact, and q' is the
@@ -82,6 +83,19 @@ __device__ __forceinline__ T div_by(T a, T b, T y, bool& ok) {
   ok &= zero | (in & Exact<T>::rn(q1, fma(-b, q1, a), b));
   return zero ? q : q1;
 }
+
+// An estimate of 1 / s within about an ulp: two Newton steps from the
+// hardware's approximation.  It need not be correctly rounded: the
+// certificate checks every quotient exactly.
+__device__ __forceinline__ double recip_estimate(double s) {
+  double y;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(s));
+  double e = fma(-s, y, 1.0);
+  y = fma(y, e, y);
+  e = fma(-s, y, 1.0);
+  return fma(y, e, y);
+}
+__device__ __forceinline__ float recip_estimate(float s) { return __frcp_rn(s); }
 
 // Normal powers of two whose reciprocal is normal too: 1 / s is exact.
 template <typename T> struct Pow2;

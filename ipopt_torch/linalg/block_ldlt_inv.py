@@ -21,9 +21,11 @@ launches per factorization; on the banded path of LuksanVlcek1 at n = 1e5
   to the hand-written kernel ``csrc/block_ldlt_inv.cu`` or raises.  There is
   no fallback from the kernel to the plain version.
   ``block_ldlt_inv.launches`` counts the kernel launches.
-- ``plan(nb, b, dtype)``: the kernel's launch plan.  Up to
-  ``CLUSTER_MAX_B[dtype]`` (416 in float64, 576 in float32) the cluster
-  variant: one thread-block cluster of ``cs`` CTAs per block, each CTA
+- ``plan(nb, b, dtype)``: the kernel's launch plan.  Up to b = 32 the warp
+  variant: the scalar sweep in registers, one lane per row, 32 //
+  next_pow2(b) blocks per warp, the warps spread over the SMs before a CTA
+  takes more than one.  Up to ``CLUSTER_MAX_B[dtype]`` (416 in float64, 576
+  in float32) the cluster variant: one thread-block cluster of ``cs`` CTAs per block, each CTA
   holding a strip of whole panels of rows in shared memory.  Above, the
   device-memory variant: the block stays in the output buffer and each panel
   step is three launches over all the blocks (the sweep of the panel, the
@@ -63,13 +65,18 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 # the device-memory variant: A, Ainv, d, the scratch R, nb, b, device, stream
 _GLOBAL_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# the warp variant: A, Ainv, d, nb, b, lanes, grid, threads, smem, device, stream
+_WARP_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 class Plan(NamedTuple):
     cs: int                 # CTAs per cluster, one cluster per block
     rows: Tuple[int, ...]   # rows of the block each CTA holds, in order
     smem: int               # dynamic shared bytes per CTA
-    variant: str = "cluster"  # or "global": the block in device memory
+    variant: str = "cluster"  # "warp" (b <= 32), or "global": the block in device memory
+    lanes: int = 0          # warp variant: lanes per block, next_pow2(b)
+    grid: int = 0           # warp variant: CTAs
+    threads: int = 0        # warp variant: threads per CTA
 
 
 def _strip_panels(n_panels: int, cs: int):
@@ -90,7 +97,9 @@ def _smem(b: int, cs: int, esize: int) -> int:
 
 
 def plan(nb: int, b: int, dtype) -> Plan:
-    """The launch plan of ``nb`` blocks of width ``b``.  Cluster variant:
+    """The launch plan of ``nb`` blocks of width ``b``.  Warp variant up to
+    b = 32: lanes = next_pow2(b) lanes per block, 32 // lanes blocks per
+    warp, packed by ``cuda_lib.warp_pack``.  Cluster variant:
     the smallest cluster whose strips fit one CTA's shared memory, widened
     while the launch fits the card's SMs (nb * cs <= 132), a CTA still holds
     a panel and the cluster stays portable (<= 8), to the smallest cluster
@@ -99,6 +108,11 @@ def plan(nb: int, b: int, dtype) -> Plan:
     ``smem`` the panel sweep's two 32 x 32 tiles)."""
     esize = torch.finfo(dtype).bits // 8
     n_panels = -(-b // PANEL)
+    if b <= PANEL:
+        lanes = 1 << (b - 1).bit_length()
+        grid, threads, smem = cuda_lib.warp_pack(nb, 32 // lanes, b * b * esize)
+        return Plan(cs=1, rows=(b,), smem=smem, variant="warp", lanes=lanes,
+                    grid=grid, threads=threads)
     if b > CLUSTER_MAX_B[dtype]:
         return Plan(cs=1, rows=(b,), smem=2 * PANEL * PANEL * esize, variant="global")
     cs = 1
@@ -177,7 +191,9 @@ def _library():
     return cuda_lib.load("block_ldlt_inv", {"block_ldlt_inv_f32": _ARGTYPES,
                                             "block_ldlt_inv_f64": _ARGTYPES,
                                             "block_ldlt_inv_global_f32": _GLOBAL_ARGTYPES,
-                                            "block_ldlt_inv_global_f64": _GLOBAL_ARGTYPES})
+                                            "block_ldlt_inv_global_f64": _GLOBAL_ARGTYPES,
+                                            "block_ldlt_inv_warp_f32": _WARP_ARGTYPES,
+                                            "block_ldlt_inv_warp_f64": _WARP_ARGTYPES})
 
 
 def block_ldlt_inv(A: torch.Tensor):
@@ -206,7 +222,11 @@ def block_ldlt_inv(A: torch.Tensor):
     f64 = A.dtype == torch.float64
     dev = A.device.index if A.device.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    if pl.variant == "global":
+    if pl.variant == "warp":
+        fn = lib.block_ldlt_inv_warp_f64 if f64 else lib.block_ldlt_inv_warp_f32
+        err = fn(A.data_ptr(), Ainv.data_ptr(), d.data_ptr(), nb, b, pl.lanes, pl.grid,
+                 pl.threads, pl.smem, dev, stream)
+    elif pl.variant == "global":
         R = torch.empty((nb, PANEL, b), dtype=A.dtype, device=A.device)
         fn = lib.block_ldlt_inv_global_f64 if f64 else lib.block_ldlt_inv_global_f32
         err = fn(A.data_ptr(), Ainv.data_ptr(), d.data_ptr(), R.data_ptr(), nb, b,
@@ -218,7 +238,9 @@ def block_ldlt_inv(A: torch.Tensor):
     if err != 0:
         raise RuntimeError(f"block_ldlt_inv kernel launch failed: CUDA error {err}")
     block_ldlt_inv.launches += 1
+    block_ldlt_inv.by_variant[pl.variant] = block_ldlt_inv.by_variant.get(pl.variant, 0) + 1
     return d, Ainv
 
 
 block_ldlt_inv.launches = 0
+block_ldlt_inv.by_variant = {}  # launches per variant of plan

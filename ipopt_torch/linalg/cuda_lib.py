@@ -29,9 +29,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Shared memory one CTA can use on Hopper (bytes), and the SMs of an H100 SXM.
 SMEM_BYTES = 232448
 NUM_SMS = 132
+# A kernel that packs blocks into warps spreads its warps over the SMs before
+# a CTA takes more than one, up to this many.
+MAX_WARPS_PER_CTA = 4
 
 _libs = {}
 _lock = threading.Lock()
+
+
+def warp_pack(nb: int, per_warp: int, bytes_per_block: int):
+    """(grid, threads, shared bytes per CTA) of a launch that packs
+    ``per_warp`` of ``nb`` blocks into each warp: one warp per CTA while the
+    warps fit the SMs, then up to MAX_WARPS_PER_CTA per CTA."""
+    warps = -(-nb // per_warp)
+    per_cta = min(MAX_WARPS_PER_CTA, -(-warps // NUM_SMS))
+    return -(-warps // per_cta), 32 * per_cta, per_cta * per_warp * bytes_per_block
 
 
 def _nvcc() -> str:

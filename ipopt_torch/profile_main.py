@@ -312,12 +312,15 @@ def main(mode="hs071"):
     for e in sorted(events, key=lambda e: -_device_us(e))[:12]:
         print(f"  {_device_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
     print(f"during the profiled solve: {clocks_solve}")
-    mine = [e for e in events if pattern in e.key and "kernel" in e.key]
+    # the port's own kernels, in the sources' anonymous namespace (the blocked
+    # K1 and the device-memory K2 launch several per wrapper call)
+    mine = [e for e in events if f"::{pattern}" in e.key]
     if mine and launches:
         t = sum(_device_us(e) for e in mine)
         print(f"{'K2' if mode in ('chained', 'banded') else 'K1'} device time: "
-              f"{t / launches:.2f} us per launch over {launches} launches "
-              f"({t / 1e3:.3f} ms in all, {t / busy_us:.4f} of the device's busy time)")
+              f"{t / launches:.2f} us per wrapper launch over {launches} launches "
+              f"({sum(e.count for e in mine)} CUDA launches; {t / 1e3:.3f} ms in all, "
+              f"{t / busy_us:.4f} of the device's busy time)")
     if mode == "chained":
         g = torch.Generator(device="cpu").manual_seed(0)
         A = torch.randn((64, 156, 156), generator=g, dtype=torch.float64)

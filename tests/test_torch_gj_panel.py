@@ -144,6 +144,13 @@ def test_plan_fits_and_covers_every_row(nb, b, dtype, cs):
     pl = k2.plan(nb, b, dtype)
     assert pl.cs == cs
     assert pl.smem <= cuda_lib.SMEM_BYTES
+    if b <= k2.PANEL:
+        # the warp variant: one lane per row, blocks packed into warps
+        assert pl.variant == "warp" and pl.rows == (b,)
+        per_cta = (pl.threads // 32) * (32 // pl.lanes)
+        assert pl.smem == per_cta * b * b * torch.finfo(dtype).bits // 8
+        assert pl.grid * per_cta >= nb > (pl.grid - 1) * per_cta
+        return
     assert len(pl.rows) == pl.cs and all(r > 0 for r in pl.rows)
     assert all(r % k2.PANEL == 0 for r in pl.rows[:-1])
     # each CTA's strip starts where the last one ended: every row once
@@ -153,6 +160,29 @@ def test_plan_fits_and_covers_every_row(nb, b, dtype, cs):
     # widened no further than the card's SMs
     assert max(nb, 1) * pl.cs <= k2.NUM_SMS or pl.cs == 1
     assert k2._smem(b, pl.cs, torch.finfo(dtype).bits // 8) == pl.smem
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_warp_plan_up_to_32(dtype):
+    """b <= 32 takes the warp variant: next_pow2(b) lanes per block, 32 //
+    lanes blocks per warp, the warps spread over the SMs before a CTA takes
+    more than one (at most four); above 32 the cluster variant."""
+    esize = torch.finfo(dtype).bits // 8
+    for b in range(1, 33):
+        for nb in (1, 3, 512, 6250, 12500):
+            pl = k2.plan(nb, b, dtype)
+            lanes = 1 << (b - 1).bit_length()
+            assert (pl.variant, pl.cs, pl.rows, pl.lanes) == ("warp", 1, (b,), lanes)
+            per_warp = 32 // lanes
+            warps = -(-nb // per_warp)
+            per_cta = min(4, -(-warps // k2.NUM_SMS))
+            assert pl.threads == 32 * per_cta
+            assert pl.grid == -(-warps // per_cta)
+            assert pl.grid <= k2.NUM_SMS or per_cta == 4
+            assert pl.smem == per_cta * per_warp * b * b * esize <= cuda_lib.SMEM_BYTES
+    assert k2.plan(6250, 16, dtype)[3:] == ("warp", 16, 782, 128)
+    assert k2.plan(12500, 8, dtype)[3:] == ("warp", 8, 782, 128)
+    assert k2.plan(16, 33, dtype).variant == "cluster"
 
 
 def test_max_block_from_the_plan():

@@ -21,7 +21,8 @@ import ipopt_torch
 from ipopt_torch import modellib
 from ipopt_torch.linalg import cuda_lib
 from ipopt_torch.linalg import ldlt as port_ldlt
-from ipopt_torch.linalg.block_ldlt import block_ldlt, block_ldlt_plain, plan
+from ipopt_torch.linalg.block_ldlt import (BLOCKED_MAX_NB, BLOCKED_MIN_B, block_ldlt,
+                                           block_ldlt_plain, k1_rule, plan)
 
 torch.set_num_threads(1)
 
@@ -171,17 +172,70 @@ def test_launch_plan_covers_every_width(dtype):
                 per_cta = (pl.threads // 32) * (32 // pl.lanes)
                 assert pl.grid * per_cta >= nb > (pl.grid - 1) * per_cta
                 assert pl.smem == per_cta * b * b * esize
-            else:
-                assert b > 32 and pl.grid == nb
+            elif pl.variant == "cta":
+                assert b > 32 and pl.grid == nb and pl.kernels == 1
+                assert b < BLOCKED_MIN_B or nb > BLOCKED_MAX_NB
                 tri = b * (b + 1) // 2 * esize
-                assert (pl.variant == "cta") == (tri <= cuda_lib.SMEM_BYTES)
-                assert pl.smem == (tri if pl.variant == "cta" else 0)
-    assert seen == {"warp", "cta", "global"}
-    top = max(b for b in range(33, 4097) if plan(1, b, dtype).variant == "cta")
+                assert pl.smem == tri <= cuda_lib.SMEM_BYTES
+            else:
+                # the blocked variant: static shared memory (48 KB at most),
+                # every launch's grid within one launch's limit, two launches
+                # per panel of 32 (the init, a strip per panel, an update
+                # per panel but the last)
+                assert pl.variant == "blocked" and b > 32
+                assert pl.threads == 256 and pl.rows == 16 and pl.smem <= 48 * 1024
+                assert pl.kernels == 2 * -(-b // 32)
+                below = b - 32
+                tiles = -(-below // 64)
+                assert pl.grid == max(min(1024, -(-nb * b * b // 256)),
+                                      nb * -(-below // pl.rows), nb * tiles * (tiles + 1) // 2)
+                assert pl.grid < 2 ** 31
+    assert seen == {"warp", "cta", "blocked"}
+    top = max(b for b in range(33, 4097) if plan(512, b, dtype).variant == "cta")
     assert top == (240 if dtype == torch.float64 else 340)
+    # few blocks from b = 64 on: the blocked variant, whose times beat the
+    # CTA variant's there (block_ldlt.py)
+    assert [plan(nb, b, dtype).variant for nb, b in ((1, 63), (1, 64), (32, 198),
+                                                     (33, 198), (104, 161))] == [
+        "cta", "blocked", "blocked", "cta", "cta"]
     # (512, 7, 7): two lanes per row, two blocks per warp, two warps per CTA
     # on 128 SMs
     assert plan(512, 7, dtype)[:5] == ("warp", 8, 16, 128, 64)
+
+
+def test_blocked_order_meets_the_chip_rule():
+    """The rule chip_smoke.py holds K1's blocked variant to on the card
+    (``block_ldlt.k1_rule``: the finite pattern, per-block inertia, a
+    backward error within 4x the plain version's own plus b u) admits a
+    blocked order: on every K1 input of the multifrontal solve of
+    mittelmann_dist_control_3d(5) (the smallest N whose top front, 74 wide,
+    spans more than two panels of 32; its restoration's is 148 wide), the
+    reference's ``ldlt_blocked(block=32)`` (jnp, CPU) against
+    ``block_ldlt_plain``."""
+    from ipopt_torch.profile_main import capture_k1_inputs
+    from ipopt_torch.sparse import canonicalize_sparse
+    kw = dict(linear_solver="multifrontal", print_level=0)
+    cnlp = canonicalize_sparse(modellib.mittelmann_dist_control_3d(5),
+                               ipopt_torch.Options(**kw), device="cpu")
+    inputs = capture_k1_inputs(lambda: ipopt_torch.solve(cnlp, device="cpu", **kw))
+    by_shape = {}
+    for A in inputs:
+        by_shape.setdefault(tuple(A.shape[1:]), []).append(A)
+    # the solve's top front is 74 wide, its restoration's 148
+    assert {74, 148} <= {b for b, _ in by_shape}
+    blocked = jax.jit(jax.vmap(lambda M: ref_ldlt.ldlt_blocked(M, block=32)[:2]))
+    for shape, group in sorted(by_shape.items()):
+        A = torch.cat(group)
+        L_p, d_p = block_ldlt_plain(A)
+        L_r, d_r = (torch.as_tensor(np.array(x)) for x in blocked(A.numpy()))
+        ok, why, _ = k1_rule(A, L_r, d_r, L_p, d_p)
+        assert ok, (shape, why)
+    # the rule is no tautology: a wrong pivot's block fails it
+    A = torch.cat(by_shape[max(by_shape)])
+    L_p, d_p = block_ldlt_plain(A)
+    d_bad = d_p.clone()
+    d_bad[0, -1] *= 1 + 1e-6
+    assert not k1_rule(A, L_p, d_bad, L_p, d_p)[0]
 
 
 # ipopt_tpu.solve(tests/problems.py::luksan_vlcek1(100)) in float64 on the
@@ -225,8 +279,9 @@ def same_values(x, y):
 @pytest.mark.parametrize("nb, b", [(512, 7), (9, 1), (7, 32), (64, 64), (5, 241),
                                    (3, 341), (1, 1024)])
 def test_kernel_matches_plain_on_cuda(cuda, nb, b, dtype):
-    """Every variant (warp, cta, global) bit for bit, with a guarded block
-    (block 0) and a block with an inf entry (the last)."""
+    """Every variant, with a guarded block (block 0) and a block with an inf
+    entry (the last): the warp and CTA variants bit for bit, the blocked one
+    (b = 241 in float64, 341 and 1024) by ``block_ldlt.k1_rule``."""
     A = kkt_like(np.random.default_rng(b), nb, b)
     if nb > 1:
         A[-1, b - 1, b // 2] = A[-1, b // 2, b - 1] = np.inf
@@ -236,4 +291,8 @@ def test_kernel_matches_plain_on_cuda(cuda, nb, b, dtype):
     torch.cuda.synchronize()
     assert block_ldlt.launches == before + 1
     L_p, d_p = block_ldlt_plain(A)
-    assert same_values(L, L_p) and same_values(d, d_p)
+    if plan(nb, b, dtype).variant == "blocked":
+        ok, why, _ = k1_rule(A, L, d, L_p, d_p)
+        assert ok, why
+    else:
+        assert same_values(L, L_p) and same_values(d, d_p)

@@ -313,6 +313,16 @@ def test_matches_recorded_reference(name):
     assert_matches_recorded(name, torch_cases.solve_port(name, {})[1])
 
 
+@pytest.mark.parametrize("name", torch_cases.suite_cases("lbfgs_f4"))
+def test_f4_cpu_sizes_match_recorded_reference(name):
+    """L-BFGS at chip_smoke.py F4's CPU sizes (tol 1e-6, max_iter 300):
+    luksan_vlcek1(256, 32) chained, (0, 16, 6.232458632726281), and
+    luksan_vlcek1_flat(2000) on banded-bcr, (0, 19, 6.232458632438792), as
+    the reference records them: status, iterations, factorizations and
+    objective."""
+    assert_matches_recorded(name, torch_cases.solve_port(name, {})[1])
+
+
 def test_sr1_rosenbrock_is_chaotic():
     """The twin of test_wired_options.py::test_sr1_solves_and_differs_from_
     bfgs, and why it is not held to the reference's iteration count: SR1

@@ -273,8 +273,10 @@ def cuda():
 @pytest.mark.gpu
 def test_k1_on_the_level_stacks_matches_plain(cuda):
     """K1 on every level stack of a 3-D N = 6 factorization equals its plain
-    version bit for bit (NaN in the same places)."""
-    from ipopt_torch.linalg.block_ldlt import block_ldlt, block_ldlt_plain
+    version bit for bit (NaN in the same places), but for the float64
+    blocked variant's level (the top front, 106 wide), held by
+    ``block_ldlt.k1_rule``."""
+    from ipopt_torch.linalg.block_ldlt import block_ldlt, block_ldlt_plain, k1_rule, plan
     from ipopt_torch.profile_main import capture_k1_inputs
     (_, _, _, _), (cp, info, aux, K) = _numeric_inputs("3d6", 0.0, 1e-8)
     seen = capture_k1_inputs(lambda: port_nd.nd_factorize(info, aux, K))
@@ -282,5 +284,9 @@ def test_k1_on_the_level_stacks_matches_plain(cuda):
     for A in seen:
         L, d = block_ldlt(A.to(cuda))
         Lp, dp = block_ldlt_plain(A)
+        if plan(A.shape[0], A.shape[-1], A.dtype).variant == "blocked":
+            ok, why, _ = k1_rule(A, L.cpu(), d.cpu(), Lp, dp)
+            assert ok, why
+            continue
         assert torch.equal(L.cpu().nan_to_num(7.0), Lp.nan_to_num(7.0))
         assert torch.equal(d.cpu().nan_to_num(7.0), dp.nan_to_num(7.0))

@@ -376,6 +376,18 @@ for _name, (_prob, _opts) in {
 CASES["lv5_64_lbfgs_banded"] = _c(("luksan_vlcek5", (64,)), dict(
     LBFGS, tol=1e-6, max_iter=300, linear_solver="banded-bcr"), suite="lbfgs",
     obj_atol=1e-12)
+# F4's CPU sizes of chip_smoke.py (hessian_approximation="limited-memory",
+# tol 1e-6, max_iter 300): the chained and the banded L-BFGS solves
+CASES["lv1_256_lbfgs"] = _c(("luksan_vlcek1", (256, 32)), dict(
+    LBFGS, tol=1e-6, max_iter=300), suite="lbfgs_f4")
+CASES["lv1flat_2000_lbfgs_banded"] = _c(("luksan_vlcek1_flat", (2000,)), dict(
+    LBFGS, tol=1e-6, max_iter=300, linear_solver="banded-bcr"), suite="lbfgs_f4")
+# and F4's full sizes, recorded for chip_smoke.py F4 (too slow for the CPU
+# tests): both end near objective 0, another local solution than 6.23
+CASES["lv1_4096_lbfgs"] = _c(("luksan_vlcek1", (4096, 32)), dict(
+    LBFGS, tol=1e-6, max_iter=300), suite="lbfgs_full")
+CASES["lv1flat_1e5_lbfgs_banded"] = _c(("luksan_vlcek1_flat", (100_000,)), dict(
+    LBFGS, tol=1e-6, max_iter=300, linear_solver="banded-bcr"), suite="lbfgs_full")
 for _i in FAMILY_LBFGS_SENSITIVE:
     CASES[f"hs071_fam{_i}_lbfgs"] = _c(f"hs071_fam{_i}", dict(LBFGS, max_iter=300),
                                        suite="lbfgs_sensitive")
