@@ -27,6 +27,7 @@ import torch
 from ..types import Iterate, col, max_init, min_init, tree_where
 from ..problem import CanonicalNLP
 from ..options import Options
+from ..profiling import host_bool
 from ..kkt import (Evals, barrier_obj, grad_barrier_x, grad_barrier_s,
                    fraction_to_boundary, condensed_rhs_parts, slacks, jac_t,
                    recover_bound_mult_steps, kkt_residuals, optimality_error)
@@ -329,7 +330,7 @@ def cg_line_search(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
               alpha_used=alpha_max)
     while True:
         running = ~cy["done"] & (cy["k"] < opts.max_backtracking_steps)
-        if not bool(running.any()):
+        if not host_bool(running.any()):
             break
         alpha = cy["alpha"]
         it_t = _trial_point(it, step, alpha, alpha_dual)

@@ -18,6 +18,7 @@ import torch
 from ..types import Iterate, SolverReturn, col, max_init, tree_put, tree_take
 from ..problem import CanonicalNLP, CanonicalStructure
 from ..options import Options
+from ..profiling import host_bool
 from ..chained import ChainInfo, flat_callables, row_scale, scatter_rows
 from .. import kkt
 from ..kkt import evaluate, slacks, barrier_obj
@@ -206,9 +207,9 @@ def run_structured_restoration(orig: CanonicalNLP, opts: Options,
         done_prog = (st_r.iter_count != 0) & orig_progress(st_r)
         cont = ((st_r.status == int(SolverReturn.CONTINUE)) & ~done_prog
                 & (st_r.iter_count < max_resto))
-        if not bool(cont.any()):
+        if not host_bool(cont.any()):
             break
-        if bool(cont.all()):
+        if host_bool(cont.all()):
             st_r = ipm_step_fn(resto, resto_opts, st_r)
         else:
             idx = cont.nonzero().squeeze(-1)

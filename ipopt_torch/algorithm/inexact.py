@@ -28,6 +28,7 @@ import torch
 from ..types import Iterate, col, tree_where
 from ..problem import CanonicalNLP
 from ..options import Options
+from ..profiling import host_bool
 from ..kkt import (Evals, sigmas, slacks, barrier_obj, grad_barrier_x,
                    grad_barrier_s, fraction_to_boundary,
                    recover_bound_mult_steps, condensed_rhs_parts)
@@ -74,7 +75,7 @@ def _cg(matvec, b, maxiter: int, rtol):
              x=torch.zeros_like(b), r=b, p=b, rs=_dot(b, b))
     while True:
         active = (c["k"] < maxiter) & (torch.sqrt(c["rs"]) > rtol * bnorm)
-        if not bool(active.any()):
+        if not host_bool(active.any()):
             break
         Ap = matvec(c["p"])
         alpha = c["rs"] / torch.clamp(_dot(c["p"], Ap), min=tiny)
@@ -292,7 +293,7 @@ def inexact_search_direction(nlp: CanonicalNLP, opts: Options, it: Iterate,
     gave_up = torch.zeros(mu.shape, dtype=torch.bool, device=mu.device)
     while True:
         active = ~(ok | gave_up) & (trials < opts.max_inertia_correction_rounds)
-        if not bool(active.any()):
+        if not host_bool(active.any()):
             break
         new_dx = torch.where(delta_x == 0, start, delta_x * inc)
         res2 = attempt(new_dx)
@@ -379,7 +380,7 @@ def inexact_line_search(nlp: CanonicalNLP, opts: Options, it: Iterate,
               alpha_used=alpha_max)
     while True:
         running = ~cy["done"] & (cy["k"] < opts.max_backtracking_steps)
-        if not bool(running.any()):
+        if not host_bool(running.any()):
             break
         alpha = cy["alpha"]
         it_t = _trial_point(it, step, alpha, alpha_dual)

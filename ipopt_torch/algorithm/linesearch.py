@@ -20,6 +20,7 @@ import torch
 from ..types import Iterate, col, tree_where, max_init
 from ..problem import CanonicalNLP
 from ..options import Options
+from ..profiling import host_bool
 from ..kkt import (Evals, barrier_obj, grad_barrier_x, grad_barrier_s,
                    fraction_to_boundary)
 from .step import StepResult, soc_direction
@@ -245,7 +246,7 @@ def line_search(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
         n_rounds = izero
         alpha_soc = alpha
         for _ in range(opts.max_soc):
-            if not bool(active.any()):
+            if not host_bool(active.any()):
                 break  # nothing below changes a lane that is not active
             dsoc = soc_direction(nlp, opts, it, ev, sr.fac, sr.K, mu,
                                  c_soc, dms_soc, alpha_soc)
@@ -293,7 +294,7 @@ def line_search(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
 
     while True:
         running = ~cy.done & (cy.k < opts.max_backtracking_steps)
-        if not bool(running.any()):
+        if not host_bool(running.any()):
             break
         alpha = cy.alpha
         it_t, f_t, c_t, d_t, theta_t, phi_t = eval_trial(alpha)
@@ -307,7 +308,7 @@ def line_search(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
         if opts.max_soc > 0:
             # only on the first trial, when rejected and theta did not improve
             do_soc = running & (cy.k == 0) & ~acc & (theta_t >= theta)
-            if bool(do_soc.any()):
+            if host_bool(do_soc.any()):
                 soc = tree_where(do_soc, try_soc(alpha, c_t, d_t, it_t.s, do_soc),
                                  no_soc)
         s_acc, s_ftype, s_it, s_f, s_c, s_d, s_rounds = soc

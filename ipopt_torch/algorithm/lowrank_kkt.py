@@ -26,6 +26,7 @@ import torch
 from ..types import Iterate, max_init, tree_where
 from ..problem import CanonicalNLP
 from ..options import Options
+from ..profiling import host_bool
 from ..kkt import Evals, sigmas
 from ..linalg.ldlt import ldlt, ldlt_solve, LDLTResult
 from .quasi_newton import LowRankW
@@ -177,7 +178,7 @@ def lowrank_factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate,
     gave_up = torch.zeros(mu.shape, dtype=torch.bool, device=mu.device)
     while True:
         active = ~(ok | gave_up) & (trials < opts.max_inertia_correction_rounds)
-        if not bool(active.any()):
+        if not host_bool(active.any()):
             break
         was_singular = fac.S_fac.singular | fac.smw_singular
         only_dc = was_singular & (delta_c == 0)

@@ -28,6 +28,7 @@ from torch.func import grad, jvp, vmap
 from ..types import Iterate, col, tree_where
 from ..problem import CanonicalNLP
 from ..options import Options
+from ..profiling import host_bool
 from ..kkt import Evals, sigmas, condensed_rhs_parts, recover_bound_mult_steps
 from .step import StepResult, perturbation_start
 
@@ -102,7 +103,7 @@ def minres(matvec, b, maxiter: int, rtol):
              phibar=beta0, cs=-torch.ones_like(zero), sn=zero)
     while True:
         active = (c["k"] < maxiter) & (c["phibar"] > rtol * bnorm)
-        if not bool(active.any()):
+        if not host_bool(active.any()):
             break
         beta = c["beta"]
         v = c["r2"] / col(torch.clamp(beta, min=eps))
@@ -163,7 +164,7 @@ def mf_search_direction(nlp: CanonicalNLP, opts: Options, it: Iterate,
     start, inc = perturbation_start(opts, delta_w_last)
     while True:
         active = ~(ok | gave_up) & (trials < opts.max_inertia_correction_rounds)
-        if not bool(active.any()):
+        if not host_bool(active.any()):
             break
         new_dx = torch.where(delta_x == 0, start, delta_x * inc)
         sol2, ok2, rr2 = attempt(new_dx)

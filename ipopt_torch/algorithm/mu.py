@@ -23,6 +23,7 @@ import torch
 import math
 
 from ..options import Options
+from ..profiling import host_bool
 from ..types import Iterate, col, max_init, min_init
 from ..kkt import _msum, slacks, fraction_to_boundary
 
@@ -62,7 +63,7 @@ def monotone_mu_update_components(opts: Options, ms: MuState, dual_s, primal,
         converged = err <= opts.barrier_tol_factor * mu
         new_mu, new_tau = _new_mu_tau(mu, opts)
         active = converged & (new_mu < mu) & (rounds < max_rounds)
-        if not bool(active.any()):
+        if not host_bool(active.any()):
             break
         mu = torch.where(active, new_mu, mu)
         tau = torch.where(active, new_tau, tau)

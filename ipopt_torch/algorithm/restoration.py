@@ -22,6 +22,7 @@ import torch
 from ..types import Iterate, SolverReturn, col, tree_take, tree_put, tree_where, max_init
 from ..problem import CanonicalNLP, CanonicalStructure
 from ..options import Options
+from ..profiling import host_bool
 from .. import kkt
 from ..kkt import evaluate, slacks, barrier_obj
 from .linesearch import FilterState, filter_acceptable, filter_init
@@ -189,7 +190,7 @@ def perform_restoration(orig: CanonicalNLP, resto_nlp: CanonicalNLP,
         fail = ((s_next.status == int(SolverReturn.ERROR_IN_STEP_COMPUTATION))
                 | (s_next.status == int(SolverReturn.RESTORATION_FAILURE)))
         do_rr = fail & (s_next.restoration_count < opts.max_resto_resto_iters)
-        if not bool(do_rr.any()):
+        if not host_bool(do_rr.any()):
             return s_next
         Bs = s_next.it.x.shape[0]
         x_cur = s_next.it.x[:, :n]
@@ -213,9 +214,9 @@ def perform_restoration(orig: CanonicalNLP, resto_nlp: CanonicalNLP,
         done_prog = (st_r.iter_count != 0) & progress(st_r)
         cont = ((st_r.status == int(SolverReturn.CONTINUE)) & ~done_prog
                 & (st_r.iter_count < max_resto))
-        if not bool(cont.any()):
+        if not host_bool(cont.any()):
             break
-        if bool(cont.all()):
+        if host_bool(cont.all()):
             st_r = body(rnlp, orig, st_r)
         else:
             idx = cont.nonzero().squeeze(-1)

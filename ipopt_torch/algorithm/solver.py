@@ -37,6 +37,7 @@ from ..chained import ChainedNLP, canonicalize_chained
 from ..parallel.scenario import ScenarioNLP, canonicalize_scenario
 from ..options import Options
 from .. import kkt
+from ..profiling import host_bool, solve_span, span
 from ..kkt import Evals, evaluate, kkt_residuals, optimality_error, slacks
 from ..linalg import ldlt as _ldlt_mod
 from ..linalg.block_tridiag import bcr_factorize
@@ -431,26 +432,27 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
 
     # --- Line search ------------------------------------------------------
     inx_cn_next = st.inx_cn
-    if opts.inexact_algorithm:
-        from .inexact import inexact_line_search, decomposition_next_cn
-        ls, _, nu_low_state = inexact_line_search(nlp, opts, it, ev_lo, sr, mu, tau,
-                                                  st.penalty_nu, st.nu_low, inaux)
-        ls = ls._replace(filter=st.fs)  # the penalty search keeps no filter
-        # the adaptive decomposition bit from the accepted step size, and
-        # forced on when an undecomposed round gave no usable step
-        # (IpInexactSearchDirCalc.cpp:196-200)
-        inx_cn_next = decomposition_next_cn(opts, st.inx_cn, ls.alpha_primal)
-        if inx_cn_next is not None:
-            inx_cn_next = inx_cn_next | sr.failed
-    elif opts.line_search_method == "cg-penalty":
-        from .cg_penalty import cg_line_search
-        ls, cg_state = cg_line_search(nlp, opts, it, ev_lo, sr, mu, tau, cg_state, cg_aux)
-        ls = ls._replace(filter=st.fs,  # the CG method keeps no filter
-                         accepted=ls.accepted & ~_multipliers_diverged(
-                             nlp, opts, it, ev_lo, ls, dual_inf))
-    else:
-        ls = line_search(nlp, opts, it, ev_lo, sr, mu, tau, fs_in, st.theta_min,
-                         st.theta_max, corr=corr, penalty_nu=st.penalty_nu)
+    with span("line_search"):
+        if opts.inexact_algorithm:
+            from .inexact import inexact_line_search, decomposition_next_cn
+            ls, _, nu_low_state = inexact_line_search(nlp, opts, it, ev_lo, sr, mu, tau,
+                                                      st.penalty_nu, st.nu_low, inaux)
+            ls = ls._replace(filter=st.fs)  # the penalty search keeps no filter
+            # the adaptive decomposition bit from the accepted step size, and
+            # forced on when an undecomposed round gave no usable step
+            # (IpInexactSearchDirCalc.cpp:196-200)
+            inx_cn_next = decomposition_next_cn(opts, st.inx_cn, ls.alpha_primal)
+            if inx_cn_next is not None:
+                inx_cn_next = inx_cn_next | sr.failed
+        elif opts.line_search_method == "cg-penalty":
+            from .cg_penalty import cg_line_search
+            ls, cg_state = cg_line_search(nlp, opts, it, ev_lo, sr, mu, tau, cg_state, cg_aux)
+            ls = ls._replace(filter=st.fs,  # the CG method keeps no filter
+                             accepted=ls.accepted & ~_multipliers_diverged(
+                                 nlp, opts, it, ev_lo, ls, dual_inf))
+        else:
+            ls = line_search(nlp, opts, it, ev_lo, sr, mu, tau, fs_in, st.theta_min,
+                             st.theta_max, corr=corr, penalty_nu=st.penalty_nu)
     lrf_next = ls.last_rej_filter
 
     # --- PerformDualStep: y step size per alpha_for_y (cg-penalty keeps its
@@ -482,7 +484,7 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
         wd_f, wd_c, wd_d = inf, torch.full_like(ev_lo.c, float("inf")), \
             torch.full_like(ev_lo.d, float("inf"))
         wd_theta, wd_phi = inf, inf
-        if bool(extra_eval.any()):
+        if host_bool(extra_eval.any()):
             f_w = nlp.eval_f(wd_trial.x)
             c_w, d_w = nlp.eval_cd(wd_trial.x)
             th_w = _theta(c_w, d_w, wd_trial.s, opts.constraint_violation_norm_type)
@@ -504,7 +506,7 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
     #     evaluated only when some lane's line search failed).
     curr_pd = torch.maximum(dual_inf, primal_inf)
     wd_pd = inf
-    if bool(ls_failed.any()):
+    if host_bool(ls_failed.any()):
         res_wd = kkt_residuals(nlp, wd_trial, kkt.gradient_evals(
             nlp, wd_trial.x, wd_f, wd_c, wd_d), mu)
         pd = torch.maximum(
@@ -571,42 +573,43 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
         fs_entry = filter_augment(fs_in, ls.theta_curr, ls.phi_curr,
                                   opts.gamma_theta, opts.gamma_phi)
         fs_after = tree_where(need_resto, fs_entry, ls.filter)
-        if bool(need_resto.any()):
-            idx = need_resto.nonzero().squeeze(-1)
-            sub = nlp.take(idx)
-            args = (opts, resto_opts, tree_take(it, idx), tree_take(ev_lo, idx),
-                    mu[idx], tree_take(fs_entry, idx), ls.theta_curr[idx],
-                    ls.phi_curr[idx], ipm_step)
-            if backend == "btd":
-                from .chained_resto import perform_restoration_chained
-                rr = perform_restoration_chained(sub, *args)
-            elif backend == "arrow":
-                from .arrow_resto import perform_restoration_arrow
-                rr = perform_restoration_arrow(sub, *args)
-            elif backend in ("banded", "nd"):
-                from .banded_resto import perform_restoration_banded
-                rr = perform_restoration_banded(sub, *args)
-            else:
-                from .restoration import build_resto_nlp, perform_restoration
-                rr = perform_restoration(sub, build_resto_nlp(sub, opts), *args)
-            new_it = tree_put(new_it, idx, rr.it)
-            st_sub = status[idx]
-            st_sub = torch.where(rr.locally_infeasible,
-                                 int(SolverReturn.LOCAL_INFEASIBILITY), st_sub)
-            st_sub = torch.where(rr.failed, int(SolverReturn.RESTORATION_FAILURE),
-                                 st_sub)
-            # resto_failure_feasibility_threshold (IpIpoptAlg.cpp:112-118)
-            rf_thresh = opts.resto_failure_feasibility_threshold
-            if rf_thresh <= 0.0:
-                rf_thresh = 1e2 * opts.tol
-            c_b, d_b = sub.eval_cd(rr.it.x)
-            theta_back = torch.maximum(max_init(c_b.abs(), 0.0),
-                                       max_init((d_b - rr.it.s).abs(), 0.0))
-            st_sub = torch.where(rr.success & (theta_back > rf_thresh)
-                                 & (theta_back > 0.9 * ls.theta_curr[idx]),
-                                 int(SolverReturn.RESTORATION_FAILURE), st_sub)
-            status = status.index_copy(0, idx, st_sub)
-            extra_iters = extra_iters.index_copy(0, idx, rr.resto_iters)
+        if host_bool(need_resto.any()):
+            with span("restoration"):
+                idx = need_resto.nonzero().squeeze(-1)
+                sub = nlp.take(idx)
+                args = (opts, resto_opts, tree_take(it, idx), tree_take(ev_lo, idx),
+                        mu[idx], tree_take(fs_entry, idx), ls.theta_curr[idx],
+                        ls.phi_curr[idx], ipm_step)
+                if backend == "btd":
+                    from .chained_resto import perform_restoration_chained
+                    rr = perform_restoration_chained(sub, *args)
+                elif backend == "arrow":
+                    from .arrow_resto import perform_restoration_arrow
+                    rr = perform_restoration_arrow(sub, *args)
+                elif backend in ("banded", "nd"):
+                    from .banded_resto import perform_restoration_banded
+                    rr = perform_restoration_banded(sub, *args)
+                else:
+                    from .restoration import build_resto_nlp, perform_restoration
+                    rr = perform_restoration(sub, build_resto_nlp(sub, opts), *args)
+                new_it = tree_put(new_it, idx, rr.it)
+                st_sub = status[idx]
+                st_sub = torch.where(rr.locally_infeasible,
+                                     int(SolverReturn.LOCAL_INFEASIBILITY), st_sub)
+                st_sub = torch.where(rr.failed, int(SolverReturn.RESTORATION_FAILURE),
+                                     st_sub)
+                # resto_failure_feasibility_threshold (IpIpoptAlg.cpp:112-118)
+                rf_thresh = opts.resto_failure_feasibility_threshold
+                if rf_thresh <= 0.0:
+                    rf_thresh = 1e2 * opts.tol
+                c_b, d_b = sub.eval_cd(rr.it.x)
+                theta_back = torch.maximum(max_init(c_b.abs(), 0.0),
+                                           max_init((d_b - rr.it.s).abs(), 0.0))
+                st_sub = torch.where(rr.success & (theta_back > rf_thresh)
+                                     & (theta_back > 0.9 * ls.theta_curr[idx]),
+                                     int(SolverReturn.RESTORATION_FAILURE), st_sub)
+                status = status.index_copy(0, idx, st_sub)
+                extra_iters = extra_iters.index_copy(0, idx, rr.resto_iters)
         if opts.evaluate_orig_obj_at_resto_trial:
             resto_obj_evals = extra_iters
         if opts.line_search_method == "cg-penalty":
@@ -716,7 +719,7 @@ def _ipm_step_impl(nlp: CanonicalNLP, opts: Options, st: IPMState,
             and not opts.inexact_algorithm):
         theta_acc = _theta(ev_new.c, ev_new.d, new_it.s, norm_type)
         redo = theta_acc < opts.recalc_y_feas_tol
-        if bool(redo.any()):
+        if host_bool(redo.any()):
             y_c2, y_d2 = least_squares_y(nlp, new_it.x, new_it.s,
                                          ev_new.grad_f.to(dtype), ev_new.J_c.to(dtype),
                                          ev_new.J_d.to(dtype), new_it.z_L,
@@ -1051,7 +1054,7 @@ def guarded_step(nlp: CanonicalNLP, opts: Options, st: IPMState) -> IPMState:
     """One outer iteration of the running lanes; finished lanes keep their
     state bit for bit (``ipopt_tpu/batch.py:31-35``)."""
     running = st.status == _CONTINUE
-    if bool(running.all()):
+    if host_bool(running.all()):
         return ipm_step_with_resto(nlp, opts, st)
     idx = running.nonzero().squeeze(-1)
     sub = ipm_step_with_resto(nlp.take(idx), opts, tree_take(st, idx))
@@ -1064,7 +1067,8 @@ def run_ipm(nlp: CanonicalNLP, opts: Options, st: IPMState,
     and CPU times the solve started at), max_wall_time and max_cpu_time are
     checked before every iteration (IpOptErrorConvCheck.cpp:167-213): the
     running lanes end with WALLTIME_EXCEEDED or CPUTIME_EXCEEDED."""
-    while bool((st.status == _CONTINUE).any()):
+    k = 0
+    while host_bool((st.status == _CONTINUE).any()):
         if clocks is not None:
             over = None
             if time.perf_counter() - clocks[0] > opts.max_wall_time:
@@ -1074,7 +1078,9 @@ def run_ipm(nlp: CanonicalNLP, opts: Options, st: IPMState,
             if over is not None:
                 return st._replace(status=torch.where(
                     st.status == _CONTINUE, int(over), st.status))
-        st = guarded_step(nlp, opts, st)
+        with span("iteration", k):
+            st = guarded_step(nlp, opts, st)
+        k += 1
     return st
 
 
@@ -1129,11 +1135,12 @@ def solve_canonical(nlp: CanonicalNLP, opts: Options,
         return _ldlt_mod.ldlt.calls + bcr_factorize.calls + nd_factorize.calls
 
     calls0 = calls()
-    st = initial_state(nlp, opts, it0)
-    if initial_convergence_check:
-        st = initial_check(nlp, opts, st)
-    st = run_ipm(nlp, opts, st, clocks)
-    res = finalize(nlp, opts, st)
+    with solve_span(opts.timing_statistics or opts.print_timing_statistics):
+        st = initial_state(nlp, opts, it0)
+        if initial_convergence_check:
+            st = initial_check(nlp, opts, st)
+        st = run_ipm(nlp, opts, st, clocks)
+        res = finalize(nlp, opts, st)
     return res._replace(batched_factorizations=calls() - calls0)
 
 
@@ -1296,15 +1303,10 @@ def solve(problem, options: Optional[Options] = None, device=None, it0=None,
                                         EJournalCategory.J_NLP, line)
     if opts.print_level >= 4 or (opts.output_file and opts.file_print_level >= 4):
         _print_header()
-    t0 = time.perf_counter()
     res = _unbatch(solve_canonical(cnlp, opts, it0=it0))
-    if opts.timing_statistics or opts.print_timing_statistics:
-        wall = time.perf_counter() - t0
-        if opts.print_level > 0 or opts.print_timing_statistics:
-            print(f"OverallAlgorithm....................: {wall:10.3f} (wall)")
-            print(f"  per iteration.....................: "
-                  f"{wall / max(int(res.iter_count), 1):10.4f}")
-            print_counters(res.counters)
+    if opts.print_timing_statistics or (opts.timing_statistics and opts.print_level > 0):
+        from ..profiling import last_spans, timing_report
+        timing_report(last_spans(), res.counters).print()
     return res
 
 

@@ -28,6 +28,7 @@ import torch
 from ..types import Iterate, col, tree_where, max_init, torch_dtype
 from ..problem import CanonicalNLP
 from ..options import Options
+from ..profiling import host_bool, span
 from ..kkt import (Evals, sigmas, assemble_aug_system, condensed_rhs_parts,
                    split_aug_solution, recover_bound_mult_steps,
                    grad_barrier_x, grad_barrier_s, jac_t)
@@ -118,7 +119,7 @@ def refine(matvec, solve, rhs, opts: Options, improvement: bool = True,
     while True:
         active = (i < opts.min_refinement_steps) | (
             (i < opts.max_refinement_steps) & (rr > opts.residual_ratio_max))
-        if not bool(active.any()):
+        if not host_bool(active.any()):
             break
         r = rhs - matvec(sol)
         sol2 = sol + solve_acc(r)
@@ -193,12 +194,13 @@ def regularized_retry(opts: Options, factor, delta_cd, delta_w_last,
     and deltas."""
     dxv = torch.zeros_like(delta_cd)
     dcv = delta_cd
-    K, fac, ok = factor(dxv, dcv)
+    with span("kkt.factorize"):
+        K, fac, ok = factor(dxv, dcv)
     trials = torch.ones(delta_cd.shape, dtype=torch.int64, device=delta_cd.device)
     gave_up = torch.zeros(delta_cd.shape, dtype=torch.bool, device=delta_cd.device)
     while True:
         active = ~(ok | gave_up) & (trials < opts.max_inertia_correction_rounds)
-        if not bool(active.any()):
+        if not host_bool(active.any()):
             break
         was_singular = singular(fac)
         only_dc = was_singular & (dcv <= delta_cd)
@@ -209,7 +211,8 @@ def regularized_retry(opts: Options, factor, delta_cd, delta_w_last,
         bumped = torch.where(dxv == 0, start_val, dxv * inc_fact)
         new_dx = torch.where(only_dc, dxv, bumped)
         new_gave_up = new_dx > opts.max_hessian_perturbation
-        K2, fac2, ok2 = factor(new_dx, new_dc)
+        with span("kkt.factorize"):
+            K2, fac2, ok2 = factor(new_dx, new_dc)
         trials, dxv, dcv, K, fac, ok, gave_up = tree_where(
             active, (trials + 1, new_dx, new_dc, K2, fac2, ok2, new_gave_up),
             (trials, dxv, dcv, K, fac, ok, gave_up))
@@ -242,11 +245,13 @@ def factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
                 * mu ** opts.jacobian_regularization_exponent)
 
     def factor(delta_x, delta_c):
-        K = assemble_aug_system(W, ev.J_c, ev.J_d, sig, delta_x, delta_x,
-                                delta_c, delta_c)
-        fac = _factorize(K, opts)
-        ok = ((fac.num_pos == expected_pos) & (fac.num_neg == expected_neg)
-              & ~fac.singular)
+        with span("kkt.factorize"):
+            with span("kkt.assemble"):
+                K = assemble_aug_system(W, ev.J_c, ev.J_d, sig, delta_x, delta_x,
+                                        delta_c, delta_c)
+            fac = _factorize(K, opts)
+            ok = ((fac.num_pos == expected_pos) & (fac.num_neg == expected_neg)
+                  & ~fac.singular)
         return K, fac, ok
 
     zero = torch.zeros_like(mu)
@@ -257,7 +262,7 @@ def factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
     gave_up = torch.zeros(mu.shape, dtype=torch.bool, device=mu.device)
     while True:
         active = ~(ok | gave_up) & (trials < opts.max_inertia_correction_rounds)
-        if not bool(active.any()):
+        if not host_bool(active.any()):
             break
         was_singular = fac.singular
         # Singular with no Jacobian regularization yet -> delta_c alone first
@@ -304,17 +309,18 @@ def compute_hessian(nlp: CanonicalNLP, it: Iterate):
     backend: dense (B, n, n), the stage blocks (Wd, Wo) of a chain, the
     scenario blocks (W00, W0s, Wss) of an arrow problem, or the entry values
     (B, nnz) of the banded or multifrontal backend's pattern."""
-    be = _backend(nlp)
-    if be == "btd":
-        from ..chained import stage_hessians
-        return stage_hessians(nlp, it.x, it.y_c, it.y_d)
-    if be == "arrow":
-        from ..parallel.scenario import scenario_hessians
-        return scenario_hessians(nlp, it.x, it.y_c, it.y_d)
-    if be in ("banded", "nd"):
-        from ..sparse import sparse_hessian_values
-        return sparse_hessian_values(nlp, it)
-    return nlp.eval_lag_hess(it.x, it.y_c, it.y_d)
+    with span("eval.hessian"):
+        be = _backend(nlp)
+        if be == "btd":
+            from ..chained import stage_hessians
+            return stage_hessians(nlp, it.x, it.y_c, it.y_d)
+        if be == "arrow":
+            from ..parallel.scenario import scenario_hessians
+            return scenario_hessians(nlp, it.x, it.y_c, it.y_d)
+        if be in ("banded", "nd"):
+            from ..sparse import sparse_hessian_values
+            return sparse_hessian_values(nlp, it)
+        return nlp.eval_lag_hess(it.x, it.y_c, it.y_d)
 
 
 def _custom_solver(opts: Options):
@@ -385,34 +391,35 @@ def factorize_any(nlp: CanonicalNLP, opts: Options, it: Iterate, ev: Evals,
 def solve_any(nlp: CanonicalNLP, opts: Options, fac, K, parts):
     """Solve the factorized augmented system for the four RHS blocks;
     returns ((dx, ds, dy_c, dy_d), residual_ratio)."""
-    if opts.linear_solver == "custom":
-        return _custom_solver(opts).solve(nlp, opts, fac, K, parts)
-    from .lowrank_kkt import LowRankKKT, lowrank_solve_refined
-    from .lowrank_struct import StructLowRankKKT, lowrank_struct_solve_refined
-    if isinstance(fac, LowRankKKT):
-        return lowrank_solve_refined(fac, parts, opts)
-    if isinstance(fac, StructLowRankKKT):
-        return lowrank_struct_solve_refined(nlp, opts, fac, parts)
-    be = _backend(nlp)
-    if be == "arrow":
-        from .arrow_kkt import pack_rhs_arrow, unpack_sol_arrow, arrow_solve_refined
-        (w0, ws), rr = arrow_solve_refined(K, fac, *pack_rhs_arrow(nlp, *parts),
-                                           opts)
-        return unpack_sol_arrow(nlp, w0, ws), rr
-    if be in ("btd", "banded"):
-        from .chained_kkt import chained_solve_refined
-        if be == "btd":
-            from .chained_kkt import pack_rhs as pack, unpack_sol as unpack
-        else:
-            from ..sparse import pack_rhs_banded as pack, unpack_sol_banded as unpack
-        sol, rr = chained_solve_refined(K, fac, pack(nlp, *parts), opts)
-        return unpack(nlp, sol), rr
-    if be == "nd":
-        from ..sparse import nd_solve_parts
-        return nd_solve_parts(nlp, opts, fac, K, parts)
-    rhs = torch.cat(parts, dim=-1)
-    sol, rr = solve_with_refinement(K, fac, rhs, opts)
-    return split_aug_solution(sol, nlp.n, nlp.mi, nlp.me), rr
+    with span("kkt.backsolve"):
+        if opts.linear_solver == "custom":
+            return _custom_solver(opts).solve(nlp, opts, fac, K, parts)
+        from .lowrank_kkt import LowRankKKT, lowrank_solve_refined
+        from .lowrank_struct import StructLowRankKKT, lowrank_struct_solve_refined
+        if isinstance(fac, LowRankKKT):
+            return lowrank_solve_refined(fac, parts, opts)
+        if isinstance(fac, StructLowRankKKT):
+            return lowrank_struct_solve_refined(nlp, opts, fac, parts)
+        be = _backend(nlp)
+        if be == "arrow":
+            from .arrow_kkt import pack_rhs_arrow, unpack_sol_arrow, arrow_solve_refined
+            (w0, ws), rr = arrow_solve_refined(K, fac, *pack_rhs_arrow(nlp, *parts),
+                                               opts)
+            return unpack_sol_arrow(nlp, w0, ws), rr
+        if be in ("btd", "banded"):
+            from .chained_kkt import chained_solve_refined
+            if be == "btd":
+                from .chained_kkt import pack_rhs as pack, unpack_sol as unpack
+            else:
+                from ..sparse import pack_rhs_banded as pack, unpack_sol_banded as unpack
+            sol, rr = chained_solve_refined(K, fac, pack(nlp, *parts), opts)
+            return unpack(nlp, sol), rr
+        if be == "nd":
+            from ..sparse import nd_solve_parts
+            return nd_solve_parts(nlp, opts, fac, K, parts)
+        rhs = torch.cat(parts, dim=-1)
+        sol, rr = solve_with_refinement(K, fac, rhs, opts)
+        return split_aug_solution(sol, nlp.n, nlp.mi, nlp.me), rr
 
 
 def direction_from_parts(nlp: CanonicalNLP, it: Iterate, xsplit, mu, failed):

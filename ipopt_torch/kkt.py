@@ -20,6 +20,7 @@ import torch
 
 from .types import Iterate, KKTResiduals, col, max_init, min_init
 from .problem import CanonicalNLP
+from .profiling import span
 
 
 def _mtv(J, y):
@@ -44,14 +45,15 @@ class Evals(NamedTuple):
 
 
 def evaluate(nlp: CanonicalNLP, x) -> Evals:
-    if nlp.chain is not None:
-        if nlp.struct.fd_jac_eps:
-            raise NotImplementedError(
-                "jacobian_approximation='finite-difference-values' needs "
-                "the dense backend (structured backends are matrix-free)")
-        c, d = nlp.eval_cd(x)
-        return gradient_evals(nlp, x, nlp.eval_f(x), c, d)
-    f, grad_f, c, d, J_c, J_d = nlp.eval_all(x)
+    if nlp.chain is not None and nlp.struct.fd_jac_eps:
+        raise NotImplementedError(
+            "jacobian_approximation='finite-difference-values' needs "
+            "the dense backend (structured backends are matrix-free)")
+    with span("eval"):
+        if nlp.chain is not None:
+            c, d = nlp.eval_cd(x)
+            return gradient_evals(nlp, x, nlp.eval_f(x), c, d)
+        f, grad_f, c, d, J_c, J_d = nlp.eval_all(x)
     return Evals(f=f, grad_f=grad_f, c=c, d=d, J_c=J_c, J_d=J_d)
 
 
@@ -66,12 +68,13 @@ def gradient_evals(nlp: CanonicalNLP, x, f, c, d) -> Evals:
 
 def jac_t(nlp: CanonicalNLP, ev: Evals, y_c, y_d):
     """J_c^T y_c + J_d^T y_d per lane at the point of ``ev``."""
-    if nlp.chain is not None:
-        # in the evaluation point's dtype, returned in ``ev``'s (a float32
-        # view of float64 evaluations keeps the float64 point)
-        x = ev.x
-        return nlp.eval_jac_t(x, y_c.to(x.dtype), y_d.to(x.dtype)).to(ev.grad_f.dtype)
-    return _mtv(ev.J_c, y_c) + _mtv(ev.J_d, y_d)
+    with span("eval.jac_t"):
+        if nlp.chain is not None:
+            # in the evaluation point's dtype, returned in ``ev``'s (a float32
+            # view of float64 evaluations keeps the float64 point)
+            x = ev.x
+            return nlp.eval_jac_t(x, y_c.to(x.dtype), y_d.to(x.dtype)).to(ev.grad_f.dtype)
+        return _mtv(ev.J_c, y_c) + _mtv(ev.J_d, y_d)
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..profiling import span
 from ..types import cached_tensor
 from .block_tridiag import batched_block_ldlt, _block_inertia_counts
 from .ldlt import tri_solve_blocks, _safe
@@ -672,7 +673,8 @@ def nd_factorize(info: NDInfo, aux, fronts, pivot_tol: float = 0.0) -> NDFactor:
     update = None
     for li, (lv, F) in enumerate(zip(info.levels, fronts)):
         if update is not None:
-            F = _extend_add(F, update, aux[f"extend_add{li - 1}"])
+            with span("nd.extend_add"):
+                F = _extend_add(F, update, aux[f"extend_add{li - 1}"])
         p, n_d = lv.p, lv.n_nodes
         L11, d1 = batched_block_ldlt(F[:, :, :p, :p].reshape(Bt * n_d, p, p))
         L11 = L11.view(Bt, n_d, p, p)

@@ -82,11 +82,13 @@ class Options:
     # ---- Output (IpIpoptApplication.cpp) ----
     print_level: int = _opt(5, "Output", "Verbosity 0..12 (J_* levels).", 0, 12)
     print_frequency_iter: int = _opt(1, "Output", "Print every N iterations.", 1)
-    timing_statistics: bool = _opt(False, "Output", "Collect per-phase timings.")
+    timing_statistics: bool = _opt(
+        False, "Output", "Record the solve's spans (profiling.last_spans) and, "
+        "at print_level > 0, print the timing-statistics table after it.")
     print_timing_statistics: bool = _opt(
-        False, "Output", "Print the timing-statistics block after the solve "
-        "(IpIpoptApplication.cpp:628-634); implies timing_statistics. For a "
-        "full per-phase breakdown use profiling.solve_timed.")
+        False, "Output", "Print the timing-statistics table after the solve "
+        "(IpIpoptApplication.cpp:628-634), from its spans; implies "
+        "timing_statistics.")
     file_print_level: int = _opt(5, "Output", "Print level for the output_file "
                                  "journal (FileJournal, IpJournalist.hpp:416).", 0, 12)
     output_file: str = _opt("", "Output", "Append iteration log lines to this "

@@ -4,6 +4,7 @@
     python3 -m ipopt_torch.profile_main chained    # LuksanVlcek1 4096/32 (K2)
     python3 -m ipopt_torch.profile_main banded     # LuksanVlcek1 flat 1e5 (K2)
     python3 -m ipopt_torch.profile_main multifrontal  # 3-D control N = 24 (K1)
+    python3 -m ipopt_torch.profile_main banded DIR    # keep the trace in DIR
 
 The first stacks the 512-instance HS071 family on the card and solves it
 with ``solve_batched``; the second solves ``luksan_vlcek1(4096, 32)`` (128
@@ -12,13 +13,16 @@ blocks of 156, block cyclic reduction) with ``solve``; the third solves
 blocks of 16 after RCM); the fourth solves ``mittelmann_dist_control_3d(24)``
 with ``linear_solver="multifrontal"`` (15 tree levels).  All run in float64
 with the options of
-``bench.py:74-80``: once to warm up, then once under ``cProfile`` and once
-under ``torch.profiler``, and print:
-- the card (``nvidia-smi`` name and power limit), the warm wall time and,
-  for the chained path, ms per iteration;
-- host time by solver function (cumulative seconds, from cProfile);
-- device time: busy total, idle share of the wall, the kernels with the most
-  device time, and the path's kernel's device time per launch (K1
+``bench.py:74-80``: once to warm up, once timed and once under
+``profiling.trace`` (written to DIR, by default a temporary directory), and
+print:
+- the card (``nvidia-smi`` name and power limit), the warm wall time and
+  ms per iteration;
+- host time by span of the traced solve (count, total and self seconds,
+  ``profiling.self_times``);
+- device time: busy total, idle share of the traced wall, the idle time by
+  the span open on the host (``idle_by_span.json``), the kernels with the
+  most device time, and the path's kernel's device time per launch (K1
   ``block_ldlt`` or K2 ``block_ldlt_inv``);
 - the path's kernel back to back (CUDA events) on every input the solve
   gave it, in the solve's order, beside its device time per launch inside
@@ -32,21 +36,23 @@ The banded path then solves ``luksan_vlcek1_flat(1_000_000)`` (125,000
 blocks of 16) once cold and once warm, and prints its set-up time, warm
 wall, ms per iteration and peak device memory (a measurement, not a gate).
 The multifrontal path prints K1's share of the device time and the
-triangular solves' launches (per ``nd_solve`` call and per solve).
+triangular solves' launches (per back-solve span and per solve).
 It needs a CUDA device.
 """
 from __future__ import annotations
 
-import cProfile
 import datetime
-import pstats
+import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 
-from . import Options, canonicalize_chained, modellib, solve, solve_batched, stack_problems
+from . import Options, canonicalize_chained, modellib, profiling, solve, solve_batched
+from . import stack_problems
 from .sparse import canonicalize_sparse
 from .linalg import block_ldlt as bl
 from .linalg import block_ldlt_inv as k2
@@ -55,17 +61,6 @@ from .linalg import ldlt as ldlt_mod
 
 BATCH = 512
 OPTS = dict(tol=1e-8, acceptable_tol=1e-6, acceptable_iter=10, print_level=0)
-# solver functions whose cumulative host time is reported
-FUNCS = ("solve_canonical", "initial_state", "_ipm_step_impl", "compute_hessian",
-         "evaluate", "monotone_mu_update_components", "factorize_kkt", "ldlt",
-         "block_ldlt", "solve_with_refinement", "ldlt_solve", "line_search",
-         "try_soc", "_eval_theta_phi", "perform_restoration", "finalize",
-         "stage_hessians", "stage_jacobians", "chained_factorize_kkt",
-         "assemble_btd", "bcr_factorize", "block_ldlt_inv", "chained_solve_refined",
-         "bcr_solve", "eval_jac_t", "canonicalize_sparse", "sparse_hessian_values",
-         "jacobian_values", "banded_factorize_kkt", "assemble_banded",
-         "add_diag_deltas", "nd_factorize_kkt", "nd_assemble", "nd_add_diag_deltas",
-         "nd_factorize", "_extend_add", "nd_solve_refined", "nd_solve", "nd_matvec")
 
 
 def _device_us(e):
@@ -252,7 +247,7 @@ def _setup(mode, dev):
     return (lambda: solve_batched(family, device=dev, **OPTS)), bl.block_ldlt, "ldlt_"
 
 
-def main(mode="hs071"):
+def main(mode="hs071", logdir=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_main: no CUDA device")
     if mode not in ("hs071", "chained", "banded", "multifrontal"):
@@ -277,38 +272,31 @@ def main(mode="hs071"):
           f"({wall / max(iters, 1) * 1e3:.1f} ms/iteration), "
           f"{res.batched_factorizations} batched factorizations")
 
-    prof = cProfile.Profile()
-    prof.enable()
-    run()
-    torch.cuda.synchronize()
-    prof.disable()
-    stats = pstats.Stats(prof)
-    rows = {}
-    for (path, _, name), (_, _, tt, ct, _) in stats.stats.items():
-        if name in FUNCS and "ipopt_torch" in path:
-            rows[name] = (rows.get(name, (0.0, 0.0))[0] + ct,
-                          rows.get(name, (0.0, 0.0))[1] + tt)
-    print("host time by function (cumulative s, under cProfile):")
-    for name in FUNCS:
-        if name in rows:
-            print(f"  {name:32s} {rows[name][0]:8.3f}")
-
-    from torch.profiler import ProfilerActivity, profile
+    logdir = logdir or tempfile.mkdtemp(prefix="profile_main_")
     launches0 = kernel.launches
     clocks = _Clocks()
-    t0, w0 = time.perf_counter(), time.time()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    w0 = time.time()
+    with profiling.trace(logdir) as p:
         run()
-        torch.cuda.synchronize()
-    wall_p = time.perf_counter() - t0
     clocks_solve = clocks.stop(w0, time.time())
     launches = kernel.launches - launches0
+    spans = profiling.last_spans()
+    times = profiling.self_times(spans)
+    with open(os.path.join(logdir, "idle_by_span.json")) as fh:
+        idle = json.load(fh)
+    print(f"host time by span of the traced solve (count, total s, self s; trace in "
+          f"{logdir}):")
+    for name, (n, tot, own) in sorted(times.items(), key=lambda kv: -kv[1][2]):
+        print(f"  {name:16s} {n:7d} {tot:9.3f} {own:9.3f}")
+    busy_us = idle["busy_s"] * 1e6
     events = [e for e in p.key_averages()
-              if str(e.device_type).endswith("CUDA") and _device_us(e) > 0]
-    busy_us = sum(_device_us(e) for e in events)
-    print(f"device busy {busy_us / 1e3:.3f} ms of {wall_p * 1e3:.1f} ms wall "
-          f"(idle share {1 - busy_us / 1e6 / wall_p:.4f}); "
+              if str(e.device_type).endswith("CUDA") and _device_us(e) > 0
+              and e.key not in times]
+    print(f"device busy {busy_us / 1e3:.3f} ms of {idle['wall_s'] * 1e3:.1f} ms wall "
+          f"(idle share {1 - idle['busy_s'] / idle['wall_s']:.4f}); "
           f"{sum(e.count for e in events)} kernel launches")
+    print("device idle gaps by the span open on the host (s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in idle["gaps_by_span_s"].items()))
     for e in sorted(events, key=lambda e: -_device_us(e))[:12]:
         print(f"  {_device_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
     print(f"during the profiled solve: {clocks_solve}")
@@ -336,12 +324,11 @@ def main(mode="hs071"):
                   f"(CUDA events, {n} launches); {clk}")
     elif mode == "multifrontal":
         trsm = [e for e in events if "trsm" in e.key.lower()]
-        n_solves = sum(st[0] for (path, _, name), st in stats.stats.items()
-                       if name == "nd_solve" and "ipopt_torch" in path)
+        n_solves = times.get("kkt.backsolve", (0,))[0]
         n_trsm = sum(e.count for e in trsm)
         print(f"triangular solves: {n_trsm} kernel launches with 'trsm' in their name, "
               f"{sum(_device_us(e) for e in trsm) / 1e3:.3f} ms device time, over "
-              f"{n_solves} nd_solve calls ({n_trsm / max(n_solves, 1):.1f} per call; "
+              f"{n_solves} back-solves ({n_trsm / max(n_solves, 1):.1f} per back-solve; "
               f"the cuBLAS kernel names as the profiler gives them)")
     elif mode == "banded":
         inputs = capture_k2_inputs(run)
@@ -396,4 +383,4 @@ def _banded_big(dev):
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:2])
+    main(*sys.argv[1:3])

@@ -45,6 +45,7 @@ import torch
 from torch.func import grad, hessian, jacfwd, jvp, vmap
 
 from .options import Options
+from .profiling import host_bool, span
 from .problem import NLP, CanonicalNLP, canonicalize
 from .scaling import grad_scale_factor
 from .types import Iterate, cached_tensor, max_init, torch_dtype, tree_map
@@ -560,10 +561,11 @@ def jacobian_values(nlp: CanonicalNLP, x):
     """(B, nnz) scaled Jacobian entries aligned with (j_rows, j_cols)."""
     info: BandedInfo = nlp.chain
     dev = x.device
-    Jcomp = compressed_jacobian_raw(nlp, x)
-    r = info.tensor("j_rows", dev)
-    c = info.tensor("j_colors", dev)[info.tensor("j_cols", dev)]
-    return Jcomp[:, r, c] * _row_scale(nlp)[:, r]
+    with span("eval.jacobian"):
+        Jcomp = compressed_jacobian_raw(nlp, x)
+        r = info.tensor("j_rows", dev)
+        c = info.tensor("j_colors", dev)[info.tensor("j_cols", dev)]
+        return Jcomp[:, r, c] * _row_scale(nlp)[:, r]
 
 
 def sparse_hessian_values(nlp: CanonicalNLP, it: Iterate):
@@ -667,7 +669,8 @@ def banded_factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate, h_vals, 
     exp_pos, exp_neg = expected_inertia_banded(nlp)
     j_vals = jacobian_values(nlp, it.x)
     zero = torch.zeros_like(mu)
-    K_base = assemble_banded(nlp, it, j_vals, h_vals, zero, zero)
+    with span("kkt.assemble"):
+        K_base = assemble_banded(nlp, it, j_vals, h_vals, zero, zero)
 
     def factor(dxv, dcv):
         Kb = add_diag_deltas(nlp, K_base, dxv, dcv)
@@ -695,10 +698,11 @@ def _retry_schedule(opts: Options, factor, mu, delta_w_last, delta_cd_override):
                * mu ** opts.jacobian_regularization_exponent)
     delta_cd = torch.clamp(base_cd, min=opts.jacobian_regularization_value)
     dxv, dcv = torch.zeros_like(mu), delta_cd
-    Kb, fac, ok = factor(dxv, dcv)
+    with span("kkt.factorize"):
+        Kb, fac, ok = factor(dxv, dcv)
     trials = torch.ones(mu.shape, dtype=torch.int64, device=mu.device)
     gave_up = torch.zeros(mu.shape, dtype=torch.bool, device=mu.device)
-    while bool((~(ok | gave_up) & (trials < opts.max_inertia_correction_rounds)).any()):
+    while host_bool((~(ok | gave_up) & (trials < opts.max_inertia_correction_rounds)).any()):
         only_dc = fac.singular & (dcv <= delta_cd)
         new_dc = torch.clamp(torch.maximum(dcv * 100.0, delta_cd), max=1e-2)
         start_val, inc_fact = perturbation_start(opts, delta_w_last)
@@ -707,7 +711,8 @@ def _retry_schedule(opts: Options, factor, mu, delta_w_last, delta_cd_override):
         dcv = new_dc
         gave_up = dxv > opts.max_hessian_perturbation
         Kb = fac = None
-        Kb, fac, ok = factor(dxv, dcv)
+        with span("kkt.factorize"):
+            Kb, fac, ok = factor(dxv, dcv)
         trials = trials + 1
 
     new_last = torch.where(dxv > 0, dxv, delta_w_last)
@@ -752,7 +757,8 @@ def nd_factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate, h_vals, mu,
     exp_pos, exp_neg = info.n + info.mi, info.me + info.mi
     j_vals = jacobian_values(nlp, it.x)
     zero = torch.zeros_like(mu)
-    K_base = nd_assemble(nlp, aux, info, it, j_vals, h_vals, zero, zero)
+    with span("kkt.assemble"):
+        K_base = nd_assemble(nlp, aux, info, it, j_vals, h_vals, zero, zero)
 
     def factor(dxv, dcv):
         Kf = nd_add_diag_deltas(info, aux, K_base, dxv, dcv)
