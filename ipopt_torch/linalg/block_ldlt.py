@@ -12,7 +12,10 @@ factors the augmented KKT matrix of every instance of a batch in one launch:
   with nvcc for sm_90a at first use, loaded with ctypes) or raises.  There is
   no fallback from the kernel to the plain version.  ``block_ldlt.launches``
   counts the wrapper's launches (one per call, whatever the variant's CUDA
-  launches), ``block_ldlt.by_variant`` the same per variant.
+  launches), ``block_ldlt.by_variant`` the same per variant.  Both count
+  host calls: a CUDA graph's capture counts its calls once, and its
+  replays, such as the multifrontal step's (``nested_dissection.NDGraphs``),
+  count none, so they read low where graphs replay.
 
 What bounds the kernel on an H100: at (512, 7, 7) float64 it moves
 2 * 512 * 49 * 8 B + 512 * 7 * 8 B = 430 KB (0.13 us at 3.35 TB/s), and each

@@ -20,7 +20,8 @@ launches per factorization; on the banded path of LuksanVlcek1 at n = 1e5
   port does not.  A CPU tensor goes to the plain version; a CUDA tensor goes
   to the hand-written kernel ``csrc/block_ldlt_inv.cu`` or raises.  There is
   no fallback from the kernel to the plain version.
-  ``block_ldlt_inv.launches`` counts the kernel launches.
+  ``block_ldlt_inv.launches`` counts the kernel launches made from the
+  host; a CUDA graph's replay would make none.
 - ``plan(nb, b, dtype)``: the kernel's launch plan.  Up to b = 32 the warp
   variant: the scalar sweep in registers, one lane per row, 32 //
   next_pow2(b) blocks per warp, the warps spread over the SMs before a CTA

@@ -31,10 +31,20 @@ first children then second, so that no pass adds twice into one slot: the
 result is the same on every device and equals the reference's in-order
 scatter on the CPU, and each pass is a gather, an add and a put.  Indices
 that the reference drops (``mode="drop"``) land in a dump slot that is cut
-off.
+off.  The solve's boundary updates and the product's rows are scattered the
+same way (``_scatter_passes``): an ``index_add_`` that hits a slot twice
+races on the card, and a solve would then differ from itself in the last
+bits from one run to the next.
 
 Layout: batch-first, fronts (B, n_d, f, f); the reference solves one
 problem, so B = 1 on every path (``stack_problems`` refuses these problems).
+
+On the card the level loops are replayed from CUDA graphs (``NDGraphs``):
+one for a factorization trial, one each for ``nd_solve`` and ``nd_matvec``,
+captured once per ``NDInfo``, so a trial or a sweep is one launch from the
+host in place of hundreds.  A recorded solve (``profiling.recording``) and
+a CPU tensor run the loops eagerly, and so does a step whose graph pool
+would not fit the card's free memory.
 """
 from __future__ import annotations
 
@@ -44,7 +54,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ..profiling import span
+from ..profiling import recording, span
 from ..types import cached_tensor
 from .block_tridiag import batched_block_ldlt, _block_inertia_counts
 from .ldlt import tri_solve_blocks, _safe
@@ -553,12 +563,47 @@ def _sibling_passes(info: NDInfo, li: int):
             for r in range(int(rank.max()) + 1 if lv.n_nodes else 0)]
 
 
+def _scatter_passes(idx, dump: int):
+    """The entries of the flat index ``idx`` that hit a live unknown (below
+    ``dump``), split by their rank among the entries with the same target,
+    in index order: (order, [(start, stop, targets)]), ``order`` their
+    positions in idx by rank and then in index order, and per rank its
+    slice of ``order`` and its targets.  Within a rank no target repeats,
+    so an ``index_add_`` of one adds once into each slot, with no race
+    between atomic adds on the card; the ranks in turn add in index order,
+    as one ``index_add_`` of all of ``idx`` does on the CPU, so every device
+    gives that sum bit for bit."""
+    idx = np.asarray(idx).reshape(-1)
+    live = np.flatnonzero(idx < dump)
+    tgt = idx[live]
+    by_tgt = np.argsort(tgt, kind="stable")
+    first = np.ones(len(tgt), bool)
+    first[1:] = tgt[by_tgt][1:] != tgt[by_tgt][:-1]
+    rank = np.empty(len(tgt), np.int64)
+    rank[by_tgt] = np.arange(len(tgt)) - np.flatnonzero(first)[np.cumsum(first) - 1]
+    by_rank = np.argsort(rank, kind="stable")
+    cuts = np.searchsorted(rank[by_rank], np.arange(int(rank.max(initial=-1)) + 2))
+    return live[by_rank], [(int(a), int(b), tgt[by_rank][a:b])
+                           for a, b in zip(cuts[:-1], cuts[1:])]
+
+
+def _scatter_add(dst, src, passes):
+    """``dst[:, t] += src[:, p]`` over the entries (p, t) of
+    ``_scatter_passes``, one rank at a time."""
+    order, cuts = passes
+    src = src[:, order]
+    for a, b, tgt in cuts:
+        dst.index_add_(1, tgt, src[:, a:b])
+
+
 def nd_aux(info: NDInfo, device) -> Dict[str, Any]:
     """The per-solve index data on ``device``, uploaded once per device
     (cached on the descriptor, so a warm solve uploads nothing): the
     occupied assembly slots, and per level the elimination and boundary
-    unknowns, the diagonal kinds and the extend-add indices of each sibling
-    pass, as int64 tensors."""
+    unknowns, the diagonal kinds, the extend-add indices of each sibling
+    pass, the unknowns of each front's rows and the scatter passes
+    (``_scatter_passes``) of the solve's boundary updates and of the
+    product's rows, as int64 tensors."""
     key = ("aux", str(device))
     aux = info._cache.get(key)
     if aux is not None:
@@ -567,12 +612,22 @@ def nd_aux(info: NDInfo, device) -> Dict[str, Any]:
     def up(a, dtype=torch.int64):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
+    def up_passes(idx):
+        order, cuts = _scatter_passes(idx, info.N)
+        return up(order), [(a, b, up(t)) for a, b, t in cuts]
+
     aux = {"asm_src": up(info.asm_src), "asm_slot": up(info.asm_slot)}
     L = len(info.levels)
     for li, lv in enumerate(info.levels):
         aux[f"elim_gid{li}"] = up(info.elim_gid[li])
         aux[f"bd_gid{li}"] = up(info.bd_gid[li])
         aux[f"diag_kind{li}"] = up(info.diag_kind[li], torch.int8)
+        gid = info.elim_gid[li]
+        if lv.u:
+            aux[f"bd_add{li}"] = up_passes(info.bd_gid[li])
+            gid = np.concatenate([gid, info.bd_gid[li]], 1)
+        aux[f"row_gid{li}"] = up(gid)
+        aux[f"row_add{li}"] = up_passes(gid)
         if li + 1 < L:
             passes = []
             for nodes_ in _sibling_passes(info, li):
@@ -595,13 +650,26 @@ class NDFactor(NamedTuple):
     num_neg: Any
     num_zero: Any
     singular: Any
+    graphs: Any = None        # the NDGraphs whose trial replay wrote it
+    generation: int = 0       # that replay's number (graphs.generation)
 
 
-def nd_assemble(nlp, aux, info: NDInfo, it, j_vals, h_vals, delta_x, delta_c):
+def _level_views(info: NDInfo, flat):
+    """The per-level fronts (B, n_d, f, f) viewing the flat (B, total_slots)
+    buffer."""
+    Bt = flat.shape[0]
+    return tuple(flat[:, lv.offset:lv.offset + lv.n_nodes * lv.f * lv.f]
+                 .view(Bt, lv.n_nodes, lv.f, lv.f) for lv in info.levels)
+
+
+def nd_assemble(nlp, aux, info: NDInfo, it, j_vals, h_vals, delta_x, delta_c,
+                out=None):
     """The value vector gathered into per-level fronts (B, n_d, f, f): the
     duplicates of a slot summed through ``asm_src``, then the occupied
     slots written into one zero buffer that the levels view.  ``delta_x``
-    and ``delta_c`` are per-lane (B,) tensors."""
+    and ``delta_c`` are per-lane (B,) tensors.  ``out``: that buffer,
+    (B, total_slots), given by the caller (``NDGraphs.flat``); its empty
+    slots must be zero, and each call rewrites the occupied ones."""
     from ..kkt import sigmas
     x = it.x
     Bt, dtype = x.shape[0], x.dtype
@@ -624,10 +692,9 @@ def nd_assemble(nlp, aux, info: NDInfo, it, j_vals, h_vals, delta_x, delta_c):
     vals.append(x.new_zeros((Bt, 1)))
     v_ext = torch.cat([v.to(dtype) for v in vals], -1)
     slot_vals = v_ext[:, aux["asm_src"]].sum(-1)
-    flat = x.new_zeros((Bt, info.total_slots))
+    flat = x.new_zeros((Bt, info.total_slots)) if out is None else out
     flat[:, aux["asm_slot"]] = slot_vals
-    return tuple(flat[:, lv.offset:lv.offset + lv.n_nodes * lv.f * lv.f]
-                 .view(Bt, lv.n_nodes, lv.f, lv.f) for lv in info.levels)
+    return _level_views(info, flat)
 
 
 def nd_add_diag_deltas(info: NDInfo, aux, fronts, delta_x, delta_c):
@@ -661,9 +728,14 @@ def _extend_add(F, U, passes):
 def nd_factorize(info: NDInfo, aux, fronts, pivot_tol: float = 0.0) -> NDFactor:
     """Level-batched partial LDL^T, deepest level first: K1 on every level's
     eliminated blocks.  ``nd_factorize.calls`` counts factorizations and
-    ``nd_factorize.levels`` the levels they factored (one K1 launch each)."""
+    ``nd_factorize.levels`` the levels they factored (one K1 launch each;
+    a replayed trial counts as one call of all its levels, ``NDGraphs.trial``)."""
     nd_factorize.calls += 1
     nd_factorize.levels += len(info.levels)
+    return _factor_levels(info, aux, fronts, pivot_tol)
+
+
+def _factor_levels(info: NDInfo, aux, fronts, pivot_tol) -> NDFactor:
     L11s, d1s, L21s = [], [], []
     Bt = fronts[0].shape[0]
     dev = fronts[0].device
@@ -714,8 +786,7 @@ def nd_solve(info: NDInfo, aux, fac: NDFactor, rhs):
         zs.append(z1)
         if lv.u:
             upd = -torch.matmul(fac.L21[li], z1[..., None])[..., 0]
-            rhs_e.index_add_(1, aux[f"bd_gid{li}"].reshape(-1),
-                             upd.reshape(Bt, -1))
+            _scatter_add(rhs_e, upd.reshape(Bt, -1), aux[f"bd_add{li}"])
     sol_e = rhs.new_zeros((Bt, info.N + 1))
     for li in reversed(range(len(info.levels))):
         lv = info.levels[li]
@@ -731,18 +802,31 @@ def nd_solve(info: NDInfo, aux, fac: NDFactor, rhs):
 
 def nd_matvec(info: NDInfo, aux, fronts, x):
     """K x (B, N) from the assembled fronts: each entry of K lives in
-    exactly one front; padding reads and writes the dump unknown N."""
+    exactly one front; padding reads the dump unknown N, and the rows'
+    sums go to the live unknowns in scatter passes."""
     Bt = x.shape[0]
     x_e = torch.cat([x, x.new_zeros((Bt, 1))], -1)
-    y_e = x.new_zeros((Bt, info.N + 1))
-    for li, lv in enumerate(info.levels):
-        gid = aux[f"elim_gid{li}"]
-        if lv.u:
-            gid = torch.cat([gid, aux[f"bd_gid{li}"]], 1)
-        xf = x_e[:, gid]                                       # (B, n_d, f)
+    y = x.new_zeros((Bt, info.N))
+    for li in range(len(info.levels)):
+        xf = x_e[:, aux[f"row_gid{li}"]]                       # (B, n_d, f)
         yf = torch.matmul(fronts[li], xf[..., None])[..., 0]
-        y_e.index_add_(1, gid.reshape(-1), yf.reshape(Bt, -1))
-    return y_e[:, :info.N]
+        _scatter_add(y, yf.reshape(Bt, -1), aux[f"row_add{li}"])
+    return y
+
+
+def _cast(fronts, dtype):
+    return fronts if dtype is None else tuple(F.to(dtype) for F in fronts)
+
+
+def nd_trial(info: NDInfo, aux, base, delta_x, delta_c, fac_dtype=None,
+             pivot_tol: float = 0.0):
+    """One eager trial of the inertia-correction retry: the deltas added to
+    the zero-delta fronts ``base``, the result cast to ``fac_dtype`` (None
+    keeps it) and factored; returns (delta-added fronts, NDFactor).
+    ``NDGraphs.trial`` replays the same."""
+    graph_counts["eager"] += base[0].is_cuda
+    Kf = nd_add_diag_deltas(info, aux, base, delta_x, delta_c)
+    return Kf, nd_factorize(info, aux, _cast(Kf, fac_dtype), pivot_tol)
 
 
 def nd_solve_refined(info: NDInfo, aux, fronts, fac: NDFactor, rhs, opts):
@@ -751,10 +835,184 @@ def nd_solve_refined(info: NDInfo, aux, fronts, fac: NDFactor, rhs, opts):
     no improvement test), against float64 fronts under
     ``refinement_precision="double"`` whatever the factor's dtype
     (``nested_dissection.py:683-721``); returns (sol, residual ratio) per
-    lane."""
+    lane.  The graph's own factor (``NDGraphs.holds``) is solved by replays
+    of the sweeps' graphs (``NDGraphs.sweeps``), whose fronts are that
+    trial's; lanes taken of it (``types.tree_take``, as the sensitivity's
+    unit columns do) are copies of its own, solved eagerly."""
     from ..algorithm.step import refine, refine_dtypes
     dts = refine_dtypes(opts, fronts[0].dtype, fac.L11[0].dtype)
-    fronts_a = tuple(F.to(dts[1]) for F in fronts)
-    return refine(lambda s: nd_matvec(info, aux, fronts_a, s),
-                  lambda r: nd_solve(info, aux, fac, r), rhs, opts,
-                  improvement=False, dtypes=dts)
+    if fac.graphs is not None and fac.graphs.holds(fac, rhs):
+        matvec, solve = fac.graphs.sweeps(fac, dts[1])
+    else:
+        fronts_a = tuple(F.to(dts[1]) for F in fronts)
+        on_card = rhs.is_cuda
+
+        def matvec(s):
+            graph_counts["eager"] += on_card
+            return nd_matvec(info, aux, fronts_a, s)
+
+        def solve(r):
+            graph_counts["eager"] += on_card
+            return nd_solve(info, aux, fac, r)
+    return refine(matvec, solve, rhs, opts, improvement=False, dtypes=dts)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the level loops
+# ---------------------------------------------------------------------------
+
+# The graphs' private pools hold the delta-added fronts, the factor, the
+# sweeps' vectors and the largest level's transients: GRAPH_POOL_FRONTS times
+# the fronts' bytes (in the iterate's dtype) at most.  On the card the three
+# pools took 1.87-2.02 times at NeumA1 N = 128 and 2.96-4.01 times at N = 64,
+# the most with a float32 iterate refined in float64 (PERF.md §6); 4.5 covers
+# that.  With the graph's input ``flat`` they stay allocated for the rest of
+# the solve, and a restoration phase captures a second set for its own
+# problem; so one set may take at most GRAPH_MEMORY_SHARE, a half, of the
+# card's free memory (the free bytes ``torch.cuda.mem_get_info`` reports and
+# the allocator's cached ones) when it is captured.  Otherwise the step runs
+# eagerly, which frees its transients between trials.
+GRAPH_POOL_FRONTS = 4.5
+GRAPH_MEMORY_SHARE = 0.5
+
+# Captures of the step's graphs; replays of the trial, solve and matvec
+# graphs; and, in one count, the trials, solves and matvecs that ran eagerly
+# on the card.
+graph_counts = {"captures": 0, "trial": 0, "solve": 0, "matvec": 0, "eager": 0}
+
+
+def _card_room(info: NDInfo, like) -> bool:
+    """Whether ``like`` is on the card and the step's graphs fit there."""
+    if not like.is_cuda:
+        return False
+    free, _ = torch.cuda.mem_get_info(like.device)
+    cached = torch.cuda.memory_reserved(like.device) - torch.cuda.memory_allocated(like.device)
+    need = (GRAPH_POOL_FRONTS + 1) * info.total_slots * like.shape[0] * like.element_size()
+    return need <= GRAPH_MEMORY_SHARE * (free + cached)
+
+
+def _capture(fn):
+    """(graph, outputs) of ``fn`` captured as a CUDA graph, after one run on
+    a side stream: it loads every kernel and library handle ``fn`` uses,
+    which a capture may not do."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def nd_graphs(info: NDInfo, aux, like, fac_dtype=None, pivot_tol: float = 0.0):
+    """The step's graphs for ``info`` on ``like``'s device, dtype and batch,
+    kept in ``info._cache`` beside ``nd_aux``'s data; None where the loops
+    run eagerly: in a recorded solve (a trace reads its spans and K1's
+    calls one by one), off the card, and where the step's graphs would not
+    fit the card's free memory.  The decision is kept with the graphs, so
+    a solve does not change paths part-way."""
+    if recording():
+        return None
+    key = ("graphs", str(like.device), like.dtype, like.shape[0], fac_dtype, pivot_tol)
+    if key not in info._cache:
+        info._cache[key] = (NDGraphs(info, aux, like, fac_dtype, pivot_tol)
+                            if _card_room(info, like) else None)
+    return info._cache[key]
+
+
+class NDGraphs:
+    """The multifrontal step of one ``NDInfo`` as CUDA graphs.
+
+    - The trial graph: ``nd_add_diag_deltas``, the cast to the
+      factorization dtype and ``nd_factorize``'s levels (extend-adds, K1,
+      inertia counts, triangular solves, Schur products), from the static
+      zero-delta fronts ``flat`` (``nd_assemble`` writes them) and deltas
+      into static delta-added fronts ``Kf`` and factor ``fac``.
+    - Per accumulation dtype, the sweeps' graphs: ``nd_matvec`` and
+      ``nd_solve`` of a static (B, N) vector, reading ``Kf`` and ``fac``.
+
+    Each graph is captured at its first call.  A replay runs the eager
+    loop's kernels on the same inputs in the same order.  A trial's replay
+    overwrites the factor of the one before, as the retry, which keeps one
+    factor (``sparse._retry_schedule``), allows: each factor carries the
+    number of the replay that wrote it, and the sweeps refuse a stale
+    one."""
+
+    def __init__(self, info: NDInfo, aux, like, fac_dtype, pivot_tol):
+        self.info, self.aux = info, aux
+        self.fac_dtype, self.pivot_tol = fac_dtype, pivot_tol
+        self.flat = like.new_zeros((like.shape[0], info.total_slots))
+        self.base = _level_views(info, self.flat)
+        self.generation = 0
+        self._trial = None
+        self._sweeps: Dict[Any, Any] = {}
+
+    def _trial_levels(self):
+        Kf = nd_add_diag_deltas(self.info, self.aux, self.base, self.dx, self.dc)
+        return Kf, _factor_levels(self.info, self.aux, _cast(Kf, self.fac_dtype),
+                                  self.pivot_tol)
+
+    def holds(self, fac: NDFactor, rhs) -> bool:
+        """Whether ``fac`` is this graph's static factor, which a trial's
+        replay wrote (not lanes taken of it), and ``rhs`` has its batch."""
+        return fac.L11 is self.fac.L11 and rhs.shape[0] == self.flat.shape[0]
+
+    def trial(self, delta_x, delta_c):
+        """``nd_trial`` of the fronts in ``flat``: one replay; it counts as
+        one ``nd_factorize`` call of every level."""
+        if self._trial is None:
+            self.dx, self.dc = delta_x.clone(), delta_c.clone()
+            self._trial, (self.Kf, self.fac) = _capture(self._trial_levels)
+            graph_counts["captures"] += 1
+        self.dx.copy_(delta_x)
+        self.dc.copy_(delta_c)
+        self._trial.replay()
+        self.generation += 1
+        graph_counts["trial"] += 1
+        nd_factorize.calls += 1
+        nd_factorize.levels += len(self.info.levels)
+        return self.Kf, self.fac._replace(graphs=self, generation=self.generation)
+
+    def sweeps(self, fac: NDFactor, acc_dtype):
+        """(matvec, solve) for ``step.refine`` on ``fac``, the factor of the
+        latest trial, and its fronts in ``acc_dtype``: each copies its
+        argument into the graph's input, replays it and returns a copy of
+        its output, which the next replay overwrites."""
+        sw = self._sweeps.get(acc_dtype)
+        if sw is None:
+            Bt, N = self.flat.shape[0], self.info.N
+            fronts = _cast(self.Kf, None if acc_dtype == self.Kf[0].dtype else acc_dtype)
+            x = self.flat.new_zeros((Bt, N), dtype=acc_dtype)
+            rhs = self.flat.new_zeros((Bt, N), dtype=self.fac.L11[0].dtype)
+            mv, y = _capture(lambda: nd_matvec(self.info, self.aux, fronts, x))
+            sv, sol = _capture(lambda: nd_solve(self.info, self.aux, self.fac, rhs))
+            graph_counts["captures"] += 2
+            sw = self._sweeps[acc_dtype] = (fronts, x, mv, y, rhs, sv, sol)
+        fronts, x, mv, y, rhs, sv, sol = sw
+        if fronts is not self.Kf:
+            for F, K in zip(fronts, self.Kf):
+                F.copy_(K)
+
+        def current():
+            if fac.graphs is not self or fac.generation != self.generation:
+                raise RuntimeError(
+                    f"multifrontal factor of trial {fac.generation} solved after trial "
+                    f"{self.generation} overwrote it: one factor per problem is live")
+
+        def matvec(s):
+            current()
+            x.copy_(s)
+            mv.replay()
+            graph_counts["matvec"] += 1
+            return y.clone()
+
+        def solve(r):
+            current()
+            rhs.copy_(r)
+            sv.replay()
+            graph_counts["solve"] += 1
+            return sol.clone()
+
+        return matvec, solve

@@ -123,6 +123,11 @@ def annotate(name: str):
     return span(name)
 
 
+def recording() -> bool:
+    """Whether the solve under way records its spans."""
+    return _record
+
+
 def host_bool(t) -> bool:
     """``bool(t)`` of a device value, a blocking read: a ``host_wait`` span
     while recording."""

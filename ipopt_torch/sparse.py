@@ -749,23 +749,25 @@ def unpack_sol_banded(nlp: CanonicalNLP, sol):
 def nd_factorize_kkt(nlp: CanonicalNLP, opts: Options, it: Iterate, h_vals, mu,
                      delta_w_last, delta_cd_override=None) -> BandedFactorResult:
     """Inertia-corrected multifrontal factorization: one zero-delta assembly,
-    the deltas re-added per trial, the banded backend's schedule."""
-    from .linalg.nested_dissection import (nd_aux, nd_assemble,
-                                           nd_add_diag_deltas, nd_factorize)
+    the deltas re-added per trial, the banded backend's schedule.  On the
+    card each trial replays the step's graph (``nested_dissection.nd_graphs``),
+    whose input the assembly writes."""
+    from .linalg.nested_dissection import nd_aux, nd_assemble, nd_graphs, nd_trial
     info = nlp.chain
     aux = nd_aux(info, it.x.device)
     exp_pos, exp_neg = info.n + info.mi, info.me + info.mi
     j_vals = jacobian_values(nlp, it.x)
     zero = torch.zeros_like(mu)
+    # the fronts factored in factorization_dtype (sparse.py:931-935)
+    fd = torch_dtype(opts.factorization_dtype) if opts.factorization_dtype else None
+    graphs = nd_graphs(info, aux, it.x, fd, opts.ldlt_pivot_tol)
     with span("kkt.assemble"):
-        K_base = nd_assemble(nlp, aux, info, it, j_vals, h_vals, zero, zero)
+        K_base = nd_assemble(nlp, aux, info, it, j_vals, h_vals, zero, zero,
+                             out=None if graphs is None else graphs.flat)
 
     def factor(dxv, dcv):
-        Kf = nd_add_diag_deltas(info, aux, K_base, dxv, dcv)
-        fd = opts.factorization_dtype
-        # the fronts factored in factorization_dtype (sparse.py:931-935)
-        fac = nd_factorize(info, aux, tuple(F.to(torch_dtype(fd)) for F in Kf)
-                           if fd else Kf, pivot_tol=opts.ldlt_pivot_tol)
+        Kf, fac = (nd_trial(info, aux, K_base, dxv, dcv, fd, opts.ldlt_pivot_tol)
+                   if graphs is None else graphs.trial(dxv, dcv))
         ok = (fac.num_pos == exp_pos) & (fac.num_neg == exp_neg) & ~fac.singular
         return Kf, fac, ok
 
