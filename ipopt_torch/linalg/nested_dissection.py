@@ -11,8 +11,9 @@ bandwidth is too wide for the banded BCR backend, 3-D PDE grids above all.
    The fronts are grouped by tree depth and padded to one size per depth
    (``NDLevel``), deepest level first; the gather-form assembly indices and
    the child -> parent extend-add indices are precomputed.
-2. Numeric, per factorization: one batched partial LDL^T per level.  The
-   eliminated block ``F[:, :p, :p]`` of every front of a level is factored by
+2. Numeric, per factorization: one batched partial LDL^T per level
+   (``eliminate_fronts``).  The eliminated block ``F[:, :p, :p]`` of every
+   front of a level is factored by
    ``block_tridiag.batched_block_ldlt``, that is K1 (``csrc/block_ldlt.cu``)
    on a CUDA tensor and its plain version on a CPU tensor, the reference's
    ``_vldlt`` (``nested_dissection.py:543, 616``).  The Schur complement
@@ -246,6 +247,29 @@ class NDInfo:
         uploaded once (cached)."""
         return cached_tensor(self, name, device)
 
+    def front_sizes(self):
+        """Per level, each front's own (p, u): the unknowns it eliminates
+        and its boundary, the padding (unknown N) left out."""
+        return tuple(((eg < self.N).sum(1, dtype=np.int64), (bg < self.N).sum(1, dtype=np.int64))
+                     for eg, bg in zip(self.elim_gid, self.bd_gid))
+
+    @property
+    def used_slots(self) -> int:
+        """The slots of ``total_slots`` that the fronts fill at their own
+        sizes: the sum over fronts of (p + u)^2; the rest is padding."""
+        return int(sum(((p + u) ** 2).sum() for p, u in self.front_sizes()))
+
+    @property
+    def dense_ops_used(self) -> int:
+        """One factorization's operations of ``eliminate_fronts`` counted at
+        the fronts' own sizes (``front_dense_ops``)."""
+        return int(sum(front_dense_ops(p, u).sum() for p, u in self.front_sizes()))
+
+    @property
+    def dense_ops_padded(self) -> int:
+        """The same count at the padded sizes the levels run at."""
+        return int(sum(lv.n_nodes * front_dense_ops(lv.p, lv.u) for lv in self.levels))
+
     @property
     def asm_inv(self) -> np.ndarray:
         """The reference's (total_slots,) map from every slot to its
@@ -255,6 +279,17 @@ class NDInfo:
         inv = np.full((self.total_slots,), n_unique, self.asm_src.dtype)
         inv[self.asm_slot] = np.arange(n_unique, dtype=self.asm_src.dtype)
         return inv
+
+
+def front_dense_ops(p, u):
+    """Operations of the dense elimination of a front with p eliminated and
+    u boundary unknowns (ints or integer arrays), two to a multiply-add: K1's
+    LDL^T of F11 (s quotients and s (s + 1) / 2 multiply-adds at a step with
+    s rows below the pivot), the unit triangular solve of F12's u columns
+    (p (p - 1) / 2 multiply-adds each), the p u quotients of D^-1 Y and the
+    symmetric Schur product's u (u + 1) / 2 entries of p multiply-adds."""
+    k1 = (p - 1) * p * (p + 1) // 3 + (p - 1) * p // 2
+    return k1 + u * p * (p - 1) + p * u + p * u * (u + 1)
 
 
 def nd_analyze(n: int, mi: int, me: int,
@@ -747,20 +782,10 @@ def _factor_levels(info: NDInfo, aux, fronts, pivot_tol) -> NDFactor:
         if update is not None:
             with span("nd.extend_add"):
                 F = _extend_add(F, update, aux[f"extend_add{li - 1}"])
-        p, n_d = lv.p, lv.n_nodes
-        L11, d1 = batched_block_ldlt(F[:, :, :p, :p].reshape(Bt * n_d, p, p))
-        L11 = L11.view(Bt, n_d, p, p)
-        d1 = d1.view(Bt, n_d, p)
+        p = lv.p
+        L11, d1, L21, update = eliminate_fronts(F[:, :, :p, :], F[:, :, p:, p:])
         po, ne, ze = _block_inertia_counts(d1, pivot_tol)
         num_pos, num_neg, num_zero = num_pos + po, num_neg + ne, num_zero + ze
-        if lv.u:
-            Y = tri_solve_blocks(L11, F[:, :, :p, p:])               # (B, n, p, u)
-            Yd = Y / _safe(d1)[..., None]
-            L21 = Yd.transpose(-1, -2)
-            update = F[:, :, p:, p:] - torch.matmul(Y.transpose(-1, -2), Yd)
-        else:
-            L21 = F.new_zeros((Bt, n_d, 0, p))
-            update = None
         L11s.append(L11)
         d1s.append(d1)
         L21s.append(L21)
@@ -772,6 +797,26 @@ def _factor_levels(info: NDInfo, aux, fronts, pivot_tol) -> NDFactor:
 
 nd_factorize.calls = 0
 nd_factorize.levels = 0
+
+
+def eliminate_fronts(Fp, F22):
+    """The dense elimination of one level's fronts: ``Fp`` (B, n_d, p, f)
+    their eliminated rows, ``F22`` (B, n_d, u, u) their boundary block, u =
+    f - p.  K1 factors F11 = L11 D L11^T, a triangular solve gives Y =
+    L11^-1 F12, and the Schur product the update F22 - Y^T D^-1 Y that the
+    parent level extend-adds.  Returns (L11, d1, L21, update), the update
+    None where the fronts have no boundary (the top of the tree).  Called through
+    the module's name, so a benchmark can time it where it is called."""
+    with span("nd.eliminate"):
+        Bt, n_d, p, f = Fp.shape
+        L11, d1 = batched_block_ldlt(Fp[..., :p].reshape(Bt * n_d, p, p))
+        L11 = L11.view(Bt, n_d, p, p)
+        d1 = d1.view(Bt, n_d, p)
+        if f == p:
+            return L11, d1, Fp.new_zeros((Bt, n_d, 0, p)), None
+        Y = tri_solve_blocks(L11, Fp[..., p:])                     # (B, n, p, u)
+        Yd = Y / _safe(d1)[..., None]
+        return L11, d1, Yd.transpose(-1, -2), F22 - torch.matmul(Y.transpose(-1, -2), Yd)
 
 
 def nd_solve(info: NDInfo, aux, fac: NDFactor, rhs):

@@ -8,8 +8,9 @@ distributed control, ``bench.py:247-299``), LuksanVlcek 2-7 in equality (E)
 and inequality (I) form, and the 2-D Mittelmann boundary control chained
 over pairs of grid rows, and the two-stage stochastic QP of the reference's
 scenario tests (``tests/test_scenario.py:11``) for the block-arrow backend.
-``mittelmann_dist_control_3d`` comes with the multifrontal backend that
-solves it.
+``mittelmann_dist_control_3d`` and the 3-D Dirichlet boundary control
+``mittelmann_bndry_control_3d`` come with the multifrontal backend that
+solves them.
 
 The stage functions of a chained model are module-level functions or
 value-compared callables, so that two instances of one model share one
@@ -314,10 +315,12 @@ def mittelmann_dist_control(N: int) -> NLP:
 
 
 def mittelmann_dist_control_3d(N: int) -> NLP:
-    """3-D elliptic distributed control (``ipopt_tpu/modellib.py:593-668``;
-    the MittelmannDistCntrl3D family of examples/ScalableProblems), the 2-D
-    problem's semilinear PDE constraint on a 7-point stencil with the
-    Dirichlet boundary y = 0:
+    """3-D elliptic distributed control (``ipopt_tpu/modellib.py:593-668``):
+    ``mittelmann_dist_control``'s semilinear PDE constraint carried to a
+    7-point stencil with the Dirichlet boundary y = 0.  No problem of
+    Ipopt's examples/ScalableProblems states it, so its constants are the
+    2-D problem's; ``mittelmann_bndry_control_3d`` is the published 3-D
+    problem of that directory.
 
         min  hh sum 0.5 ((y_ijk - yd)^2 + alpha u_ijk^2)
         s.t. 6 y_ijk - y_nbrs + hh (-exp(y_ijk) - u_ijk) = 0
@@ -383,6 +386,73 @@ def mittelmann_dist_control_3d(N: int) -> NLP:
                f=f, g=g, g_L=np.zeros(m), g_U=np.zeros(m),
                x_L=x_L, x_U=x_U, x0=x0,
                jac_g_sparsity=(jr, jc), lag_hess_sparsity=(diag, diag))
+
+
+def mittelmann_bndry_control_3d(N: int) -> NLP:
+    """MittelmannBndryCntrlDiri3D (examples/ScalableProblems/
+    MittelmannBndryCntrlDiri3D.{hpp,cpp}): the 3-D form of
+    ``mittelmann_bndry_control``'s example 1, Poisson Dirichlet boundary
+    control on the unit cube,
+
+        min  h^3/2 sum_int (y_ijk - y_d)^2 + alpha h^2/2 sum_bnd y^2
+        s.t. 6 y_ijk - y_{i+-1,j,k} - y_{i,j+-1,k} - y_{i,j,k+-1}
+                 = -h^2 d_const                (interior i, j, k = 1..N)
+             y_int <= ub_y,  lb_u <= y_bnd <= ub_u
+
+    on an (N+2)^3 grid, h = 1/(N+1), x = y row-major over (i, j, k): the
+    controls are the boundary values of y, edges and corners included (they
+    enter no PDE row).  y_d = 3 + 5 x1 (x1 - 1) x2 (x2 - 1) x3 (x3 - 1) and
+    example 1's alpha = 0.01, ub_y = 3.5, lb_u = 0, ub_u = 10, d_const =
+    -20; the start is y_d inside and (lb_u + ub_u) / 2 on the boundary, as
+    ``mittelmann_bndry_control``'s.  Edges and corners are kept as bounded
+    controls with the control weight, as that builder keeps its corners:
+    they enter no PDE row, so their optimum is lb_u = 0.  The 7-point
+    Jacobian pattern and the diagonal Hessian are declared: solve it with
+    ``linear_solver="multifrontal"``."""
+    alpha, ub_y, lb_u, ub_u = _MITTELMANN_EXAMPLES[1]
+    Ng = N + 2
+    h = 1.0 / (N + 1)
+    n = Ng ** 3
+    t = np.arange(Ng) / (N + 1)
+    q = t * (t - 1.0)
+    yd_grid = 3.0 + 5.0 * q[:, None, None] * q[None, :, None] * q[None, None, :]
+    y_d = DeviceConstant(yd_grid[1:-1, 1:-1, 1:-1].reshape(-1))
+    interior = np.zeros((Ng, Ng, Ng), bool)
+    interior[1:-1, 1:-1, 1:-1] = True
+    bnd = DeviceConstant(np.flatnonzero(~interior))
+
+    def f(x):
+        Y = x.reshape(Ng, Ng, Ng)
+        y_int = Y[1:-1, 1:-1, 1:-1].reshape(-1)
+        return (h ** 3 / 2.0 * ((y_int - y_d.like(x)) ** 2).sum()
+                + alpha * h * h / 2.0 * (x[bnd.like(x)] ** 2).sum())
+
+    def g(x):
+        Y = x.reshape(Ng, Ng, Ng)
+        pde = (6.0 * Y[1:-1, 1:-1, 1:-1]
+               - Y[:-2, 1:-1, 1:-1] - Y[2:, 1:-1, 1:-1]
+               - Y[1:-1, :-2, 1:-1] - Y[1:-1, 2:, 1:-1]
+               - Y[1:-1, 1:-1, :-2] - Y[1:-1, 1:-1, 2:])
+        return pde.reshape(-1)
+
+    idx = np.arange(n, dtype=np.int32).reshape(Ng, Ng, Ng)
+    rows = np.arange(N ** 3, dtype=np.int32)
+    cols = [idx[1:-1, 1:-1, 1:-1]]
+    for axis in range(3):
+        for lo in (0, 2):
+            sl = [slice(1, -1)] * 3
+            sl[axis] = slice(lo, lo + N)
+            cols.append(idx[tuple(sl)])
+    jr = np.tile(rows, 7)
+    jc = np.concatenate([c.reshape(-1) for c in cols])
+    diag = np.arange(n, dtype=np.int32)
+    rhs = -(h * h) * -20.0                 # -h^2 d_const
+    x_L = np.where(interior, -1e20, lb_u).reshape(-1)
+    x_U = np.where(interior, ub_y, ub_u).reshape(-1)
+    x0 = np.where(interior, yd_grid, 0.5 * (lb_u + ub_u)).reshape(-1)
+    return NLP(f=f, g=g, g_L=np.full(N ** 3, rhs), g_U=np.full(N ** 3, rhs),
+               x_L=x_L, x_U=x_U, x0=x0, jac_g_sparsity=(jr, jc),
+               lag_hess_sparsity=(diag, diag), name=f"mittelmann_bndry_control_3d_N{N}")
 
 
 def _lv_bounds(m: int, equality: bool):

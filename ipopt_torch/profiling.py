@@ -14,6 +14,7 @@ The solver opens a named span at each layer boundary of a solve:
 ``kkt.assemble``   the KKT matrix assembled (dense, banded, fronts)
 ``kkt.factorize``  one trial of the inertia-correction retry
 ``nd.extend_add``  one extend-add of the multifrontal factorization
+``nd.eliminate``   one level's dense elimination (K1, trsm, Schur product)
 ``kkt.backsolve``  a solve with the factorization (``step.solve_any``)
 ``line_search``    the line search of an iteration
 ``restoration``    the restoration phase
@@ -316,7 +317,8 @@ def timing_report(spans, counters=None) -> TimingReport:
     rep = TimingReport()
     if spans:
         rep.overall = (spans[0].end_ns - spans[0].start_ns) / 1e9
-    rep.lin_factorization = rows("kkt.assemble", "kkt.factorize", "nd.extend_add")
+    rep.lin_factorization = rows("kkt.assemble", "kkt.factorize", "nd.extend_add",
+                                 "nd.eliminate")
     rep.lin_backsolve = rows("kkt.backsolve")
     rep.search_direction = rep.lin_factorization + rep.lin_backsolve
     rep.function_evals = rows("eval", "eval.jacobian", "eval.jac_t")
